@@ -1,0 +1,87 @@
+"""Device-resident episode replay ring, port of ``refil_tpu/core/buffer.py``.
+
+Storage is ``{key: (buffer_size, T+1, ...)}`` on one device. Insertion
+writes at ``(index + arange(B)) % size``; sampling is uniform without
+replacement over the filled episodes, with indices drawn on the host by
+``np.random.default_rng(seed)``, the same stream the JAX ring draws, so the
+two rings sample the same episodes.
+
+``buffer_dtype="bfloat16"`` stores the float32 feature planes
+(``FEATURE_RING_KEYS``) compressed and casts them back on read; reward,
+terminated and the masks keep their dtype.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+# the feature planes eligible for bf16 storage (one place for the whole port)
+FEATURE_RING_KEYS = frozenset({"entities", "obs", "state", "actions_onehot"})
+
+
+class ReplayBuffer:
+    def __init__(self, template: Dict[str, torch.Tensor], buffer_size: int, seed: int = 0,
+                 device=None, feature_dtype: str = "float32"):
+        """``template``: one episode batch (B, T+1, ...) giving shapes and dtypes.
+        ``device``: where the ring lives (default: the template's device)."""
+        if feature_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"buffer_dtype must be float32 or bfloat16, not {feature_dtype!r}")
+        self.buffer_size = buffer_size
+        first = next(iter(template.values()))
+        self.device = torch.device(device) if device is not None else first.device
+        self._out_dtypes = {k: v.dtype for k, v in template.items()}
+
+        def store_dtype(k, dt):
+            if feature_dtype == "bfloat16" and k in FEATURE_RING_KEYS and dt == torch.float32:
+                return torch.bfloat16
+            return dt
+
+        self.data = {
+            k: torch.zeros((buffer_size,) + tuple(x.shape[1:]), dtype=store_dtype(k, x.dtype),
+                           device=self.device)
+            for k, x in template.items()
+        }
+        self.index = 0
+        self.episodes_in_buffer = 0
+        self._rng = np.random.default_rng(seed)
+
+    def insert_episode_batch(self, batch: Dict[str, torch.Tensor]) -> None:
+        B = next(iter(batch.values())).shape[0]
+        positions = torch.as_tensor((self.index + np.arange(B)) % self.buffer_size,
+                                    device=self.device)
+        for k, buf in self.data.items():
+            buf[positions] = batch[k].to(device=self.device, dtype=buf.dtype)
+        self.index = int((self.index + B) % self.buffer_size)
+        self.episodes_in_buffer = min(self.episodes_in_buffer + B, self.buffer_size)
+
+    def can_sample(self, batch_size: int) -> bool:
+        return self.episodes_in_buffer >= batch_size
+
+    def _gather(self, idx: np.ndarray, device) -> Dict[str, torch.Tensor]:
+        index = torch.as_tensor(idx, device=self.device)
+        return {k: self.data[k][index].to(device=device, dtype=self._out_dtypes[k])
+                for k in self.data}
+
+    def sample(self, batch_size: int, device=None) -> Dict[str, torch.Tensor]:
+        """Uniform sample without replacement, (batch_size, T+1, ...)."""
+        if not self.can_sample(batch_size):
+            raise ValueError(f"{self.episodes_in_buffer} episodes cannot give {batch_size}")
+        if self.episodes_in_buffer == batch_size:
+            idx = np.arange(batch_size)
+        else:
+            idx = self._rng.choice(self.episodes_in_buffer, batch_size, replace=False)
+        return self._gather(idx, device or self.device)
+
+    def sample_many(self, n_iters: int, batch_size: int, device=None) -> Dict[str, torch.Tensor]:
+        """``n_iters`` independent samples stacked on a leading axis
+        (n_iters, batch_size, T+1, ...), gathered in one indexing op per plane."""
+        if not self.can_sample(batch_size):
+            raise ValueError(f"{self.episodes_in_buffer} episodes cannot give {batch_size}")
+        if self.episodes_in_buffer == batch_size:
+            idx = np.tile(np.arange(batch_size), (n_iters, 1))
+        else:
+            idx = np.stack([self._rng.choice(self.episodes_in_buffer, batch_size, replace=False)
+                            for _ in range(n_iters)])
+        return self._gather(idx, device or self.device)

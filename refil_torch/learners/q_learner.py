@@ -1,0 +1,201 @@
+"""Q-learner: 1-step double-Q TD with (imagined) value-decomposition mixing.
+Port of ``refil_tpu/learners/q_learner.py``.
+
+One update: whole-episode forward -> chosen Qs -> the REFIL ×3 split ->
+double-Q target from the live net's argmax -> live and target mixing ->
+1-step target r + γ(1−term)·Q_tot_target -> masked MSE + λ-weighted imagined
+loss -> global-norm clip -> RMSprop. The target networks are deep copies,
+hard-synced every ``target_update_interval`` episodes.
+
+Optimiser: ``torch.optim.RMSprop(lr, alpha=optim_alpha, eps=optim_eps)``,
+the rule the JAX package's optax chain mimics. The clip is optax's
+``clip_by_global_norm``: gradients are left alone when the global norm is
+below ``grad_norm_clip`` and become ``g / norm * grad_norm_clip`` otherwise
+(``torch.nn.utils.clip_grad_norm_`` would scale by ``clip / (norm + 1e-6)``).
+"""
+from __future__ import annotations
+
+import copy
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from ..controllers.mac import compute_dtype
+from ..modules.mixers import MIXER_REGISTRY, LinearFlexQMixer, VDNMixer
+
+NEG = -9999999.0  # Q of an unavailable action in the double-Q argmax
+
+
+def _gather(q: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return q.gather(3, a[..., None]).squeeze(3)
+
+
+class QLearner:
+    def __init__(self, mac, args, env_info, device, generator=None, init_generator=None):
+        """``generator`` draws the imagine bipartitions; ``init_generator``
+        draws the mixer's initial weights."""
+        self.mac = mac
+        self.args = args
+        self.device = torch.device(device)
+        self.generator = generator
+        self.n_agents = env_info["n_agents"]
+        self.is_imagine = "imagine" in args.agent
+        if getattr(args, "td_lambda", None) is not None:
+            raise NotImplementedError("td_lambda (TD(lambda) targets, utils/rl_utils.py) is not "
+                                      "ported yet: ROADMAP queue A item 4")
+
+        self.mixer = None
+        mixer_name = getattr(args, "mixer", None)
+        if mixer_name == "vdn":
+            self.mixer = VDNMixer()
+        elif mixer_name == "lin_flex_qmix":
+            self.mixer = LinearFlexQMixer(
+                n_agents=self.n_agents,
+                input_dim=mac.input_shape,
+                mixing_embed_dim=args.mixing_embed_dim,
+                hypernet_embed=args.hypernet_embed,
+                attn_n_heads=args.attn_n_heads,
+                softmax_mixing_weights=bool(args.softmax_mixing_weights),
+                pooling_type=getattr(args, "pooling_type", None),
+                dtype=compute_dtype(args),
+                use_kernel=bool(getattr(args, "use_pallas_attention", True)),
+                generator=init_generator,
+            ).to(self.device)
+        elif mixer_name is not None:
+            raise NotImplementedError(f"mixer {mixer_name!r} is not ported yet (ROADMAP queue "
+                                      f"A); ported: {sorted(MIXER_REGISTRY)}")
+
+        self.params = list(mac.parameters())
+        if self.mixer is not None:
+            self.params += list(self.mixer.parameters())
+        if getattr(args, "weight_decay", 0):
+            raise NotImplementedError("weight_decay is not ported yet (ROADMAP queue A item 4)")
+        self.optimiser = torch.optim.RMSprop(self.params, lr=args.lr, alpha=args.optim_alpha,
+                                             eps=args.optim_eps)
+        self.target_mac = copy.deepcopy(mac)
+        self.target_mixer = copy.deepcopy(self.mixer)
+        self.last_target_update_episode = 0
+        self.log_stats_t = -getattr(args, "learner_log_interval", 2000) - 1
+
+    # ------------------------------------------------------------------
+    def _loss(self, batch: Dict[str, torch.Tensor], imagine_draws=None):
+        args, mac = self.args, self.mac
+        rewards = batch["reward"][:, :-1]
+        actions = batch["actions"][:, :-1]
+        terminated = batch["terminated"][:, :-1].float()
+        mask = batch["filled"].float()[:, :-1].clone()
+        mask[:, 1:] = mask[:, 1:] * (1.0 - terminated[:, :-1])
+        avail = batch["avail_actions"]
+
+        metrics = {}
+        if self.is_imagine:
+            all_q, groups = mac.forward_episode(
+                batch, imagine=True, generator=self.generator, imagine_draws=imagine_draws,
+                use_gt_factors=bool(getattr(args, "train_gt_factors", False)),
+                use_rand_gt_factors=bool(getattr(args, "train_rand_gt_factors", False)))
+            all_chosen = _gather(all_q[:, :-1], torch.cat([actions] * 3, dim=0))
+            mac_out = all_q.chunk(3, dim=0)[0]
+            chosen, caqW, caqI = all_chosen.chunk(3, dim=0)
+            caq_imagine = torch.cat([caqW, caqI], dim=2)
+        else:
+            mac_out = mac.forward_episode(batch)
+            chosen = _gather(mac_out[:, :-1], actions)
+            groups = None
+
+        with torch.no_grad():
+            target_q = self.target_mac.forward_episode(batch).masked_fill(~avail, NEG)
+            if args.double_q:
+                live = mac_out.detach().masked_fill(~avail, NEG)
+                target_max_qvals = _gather(target_q, live.argmax(dim=3))
+            else:
+                target_max_qvals = target_q.max(dim=3).values
+
+        m_ents, _, m_em, _ = mac.build_episode_inputs(batch)
+        if self.mixer is not None:
+            chosen_tot = self.mixer(chosen, m_ents[:, :-1], m_em[:, :-1])
+            if self.is_imagine:
+                g = tuple(gr[:, :-1] for gr in groups)
+                caq_tot = self.mixer(caq_imagine, m_ents[:, :-1], m_em[:, :-1], imagine_groups=g)
+            with torch.no_grad():
+                target_tot = self.target_mixer(target_max_qvals, m_ents, m_em)
+        else:
+            chosen_tot, target_tot = chosen, target_max_qvals
+            caq_tot = caq_imagine if self.is_imagine else None
+
+        targets = (rewards + args.gamma * (1.0 - terminated) * target_tot[:, 1:]).detach()
+        td_error = chosen_tot - targets
+        masked_td = td_error * mask
+        mask_elems = mask.sum()
+        loss = (masked_td ** 2).sum() / mask_elems
+        metrics["loss_td"] = loss
+        if self.is_imagine:
+            im_loss = (((caq_tot - targets) * mask) ** 2).sum() / mask_elems
+            loss = (1 - args.lmbda) * loss + args.lmbda * im_loss
+            metrics["im_loss"] = im_loss
+        metrics["loss"] = loss
+        metrics["td_error_abs"] = masked_td.abs().sum() / mask_elems
+        metrics["q_taken_mean"] = (chosen_tot * mask).sum() / (mask_elems * self.n_agents)
+        metrics["target_mean"] = (targets * mask).sum() / (mask_elems * self.n_agents)
+        return loss, metrics
+
+    def train_step(self, batch, imagine_draws=None) -> Dict[str, torch.Tensor]:
+        """One update; returns its metrics as 0-d tensors (no host sync)."""
+        loss, metrics = self._loss(batch, imagine_draws)
+        self.optimiser.zero_grad(set_to_none=False)
+        loss.backward()
+        grads = [p.grad for p in self.params]
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        metrics["grad_norm"] = norm  # pre-clip
+        clip = float(self.args.grad_norm_clip)
+        with torch.no_grad():
+            keep = norm < clip
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / norm * clip))
+        self.optimiser.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def train_iters(self, batches, t_env: int, episode_num: int,
+                    imagine_draws: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+        """The ``training_iters`` updates in sequence on ``batches`` stacked on
+        a leading iteration axis (``ReplayBuffer.sample_many``); then the
+        target sync on its episode cadence. Returns the last update's metrics.
+        ``imagine_draws[i]`` = (group_probs, groupA) for update i (tests)."""
+        n_iters = next(iter(batches.values())).shape[0]
+        metrics = {}
+        for i in range(n_iters):
+            batch = {k: v[i] for k, v in batches.items()}
+            metrics = self.train_step(batch, None if imagine_draws is None else imagine_draws[i])
+        self._maybe_update_targets(episode_num)
+        return metrics
+
+    def _maybe_update_targets(self, episode_num: int) -> None:
+        if (episode_num - self.last_target_update_episode) / self.args.target_update_interval >= 1.0:
+            self.update_targets()
+            self.last_target_update_episode = episode_num
+
+    def update_targets(self) -> None:
+        """Hard copy of the live networks into the targets."""
+        self.target_mac.agent.load_state_dict(self.mac.agent.state_dict())
+        if self.mixer is not None:
+            self.target_mixer.load_state_dict(self.mixer.state_dict())
+
+    # --- diagnostics: gt-factor in-group proportion ---
+    @torch.no_grad()
+    def gt_diagnostics(self, batch, imagine_draws=None):
+        """(ingroup_prop, gt_ingroup_prop) for imagine agents with the linear
+        mixer (Group Matching, ``test_gt_factors``); None otherwise."""
+        if not isinstance(self.mixer, LinearFlexQMixer) or not self.is_imagine:
+            return None
+        mac = self.mac
+        rep_actions = torch.cat([batch["actions"][:, :-1]] * 3, dim=0)
+        m_ents, _, m_em, _ = mac.build_episode_inputs(batch)
+        out = {}
+        for tag, kw in (("ingroup_prop", {}), ("gt_ingroup_prop", {"use_gt_factors": True})):
+            all_q, groups = mac.forward_episode(batch, imagine=True, generator=self.generator,
+                                                imagine_draws=imagine_draws, **kw)
+            _, caqW, caqI = _gather(all_q[:, :-1], rep_actions).chunk(3, dim=0)
+            g = tuple(gr[:, :-1] for gr in groups)
+            _, prop = self.mixer(torch.cat([caqW, caqI], dim=2), m_ents[:, :-1], m_em[:, :-1],
+                                 imagine_groups=g, ret_ingroup_prop=True)
+            out[tag] = prop
+        return out

@@ -1,0 +1,133 @@
+"""Masked entity-set attention: the plain PyTorch versions.
+
+Port of ``refil_tpu/ops/attention.py:56-191``. These functions are the plain
+version of the CUDA kernel in ``ops/entity_attn.py``: the CPU path and the
+tests run them, and ``chip_smoke.py`` holds the kernel against them on the
+card. Gradients come from autograd.
+
+Semantics:
+  * blocked pairs get a logit of -1e9 (finite), and rows whose pre-mask blocks
+    every entity produce exactly zero (the reference's NaN->0), never NaN;
+  * logits, softmax and both attention products accumulate in float32 even
+    for bfloat16 inputs; the softmax weights and the attention output are
+    rounded to the input dtype, as in the JAX package;
+  * the softmax scale is the Python float ``1/sqrt(hd)`` of the Pallas kernel
+    (``pallas_attn.py:104``). The JAX XLA path rounds it to the query dtype
+    (``attention.py:80``); the two agree exactly in float32 and for every
+    head width that is a power of 4, and differ by at most one bfloat16
+    rounding of the scale otherwise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+NEG = -1e9  # logit of a blocked pair
+
+
+def masked_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    pre_mask: Optional[torch.Tensor],
+    n_heads: int,
+    ret_logits: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Multi-head scaled dot-product attention with a blocking pre-mask.
+
+    query (B, Nq, E); key, value (B, Ne, E); pre_mask (B, Nq, Ne) bool or
+    None. Returns (out (B, Nq, E), unmasked per-head logits (B, H, Nq, Ne) or
+    None).
+    """
+    B, Nq, E = query.shape
+    Ne = key.shape[1]
+    hd = E // n_heads
+    scale = 1.0 / math.sqrt(hd)
+
+    q = query.reshape(B, Nq, n_heads, hd).transpose(1, 2).float()
+    k = key.reshape(B, Ne, n_heads, hd).transpose(1, 2).float()
+    v = value.reshape(B, Ne, n_heads, hd).transpose(1, 2)
+
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale  # (B,H,Nq,Ne) f32
+    if pre_mask is not None:
+        m = pre_mask[:, None, :, :]
+        weights = torch.softmax(logits.masked_fill(m, NEG), dim=-1)
+        all_blocked = pre_mask.all(dim=-1)[:, None, :, None]
+        weights = weights.masked_fill(all_blocked, 0.0)
+    else:
+        weights = torch.softmax(logits, dim=-1)
+
+    out = torch.matmul(weights.to(v.dtype).float(), v.float()).to(query.dtype)
+    out = out.transpose(1, 2).reshape(B, Nq, E)
+    return out, (logits if ret_logits else None)
+
+
+def entity_attention(
+    entities: torch.Tensor,
+    in_kernel: torch.Tensor,
+    out_kernel: torch.Tensor,
+    out_bias: torch.Tensor,
+    pre_mask: Optional[torch.Tensor],
+    post_mask: torch.Tensor,
+    n_heads: int,
+    ret_attn_logits: Optional[str] = None,
+):
+    """Fused QKV projection -> masked MHA -> output projection -> post-mask.
+
+    entities (B, Ne, D); in_kernel (D, 3E); out_kernel (E, O); out_bias (O,);
+    pre_mask (B, >=Nq, Ne) bool or None (rows beyond Nq are ignored);
+    post_mask (B, Nq) bool, whose second dim sets the number of queries Nq and
+    whose True rows are zeroed. ``ret_attn_logits`` None | 'max' | 'mean' also
+    returns head-reduced unmasked logits (B, Nq, Ne).
+    """
+    n_queries = post_mask.shape[1]
+    E = in_kernel.shape[1] // 3
+    qkv = entities @ in_kernel
+    query = qkv[:, :n_queries, :E]
+    key = qkv[..., E:2 * E]
+    value = qkv[..., 2 * E:]
+
+    pm = None if pre_mask is None else pre_mask[:, :n_queries]
+    out, logits = masked_attention(query, key, value, pm, n_heads,
+                                   ret_logits=ret_attn_logits is not None)
+    out = out @ out_kernel + out_bias
+    out = out.masked_fill(post_mask[..., None], 0.0)
+
+    if ret_attn_logits is not None:
+        if ret_attn_logits == "max":
+            logits = logits.max(dim=1).values
+        else:  # 'mean' / 'norm' both reduce by mean in the reference
+            logits = logits.mean(dim=1)
+        return out, logits
+    return out
+
+
+def entity_pooling(
+    entities: torch.Tensor,
+    in_kernel: torch.Tensor,
+    in_bias: torch.Tensor,
+    out_kernel: torch.Tensor,
+    out_bias: torch.Tensor,
+    pre_mask: Optional[torch.Tensor],
+    post_mask: torch.Tensor,
+    pooling_type: str,
+):
+    """Masked max/mean pooling ablation of the attention layer, with the
+    reference's quirks: masked entries are zeroed (not -inf) before the max,
+    and the mean divides by the total entity count Ne."""
+    n_queries = post_mask.shape[1]
+    x = entities @ in_kernel + in_bias  # (B, Ne, E)
+    rep = x[:, None].expand(x.shape[0], n_queries, x.shape[1], x.shape[2])
+    if pre_mask is not None:
+        pm = pre_mask[:, :n_queries]
+        rep = rep.masked_fill(pm[..., None], 0.0)
+    if pooling_type == "max":
+        pooled = rep.max(dim=2).values
+    elif pooling_type == "mean":
+        pooled = rep.mean(dim=2)
+    else:
+        raise ValueError(f"Unknown pooling_type {pooling_type}")
+    out = pooled @ out_kernel + out_bias
+    return out.masked_fill(post_mask[..., None], 0.0)

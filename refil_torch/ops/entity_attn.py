@@ -1,0 +1,209 @@
+"""The masked entity-attention CUDA kernels and their autograd wrapper.
+
+``entity_attention`` is the port's counterpart of
+``refil_tpu/ops/pallas_attn.py:pallas_entity_attention``. It dispatches on the
+device of the tensors it is given:
+
+  * CUDA tensors go through ``EntityAttentionFn``: the forward kernel
+    (``entity_attn_fwd`` in ``csrc/entity_attn.cu``, replacing the Pallas
+    ``_kernel``) and, on backward, the backward kernel (``entity_attn_bwd``,
+    replacing ``_bwd_kernel``). A launch that fails raises; nothing falls back.
+  * CPU tensors go to the plain PyTorch version ``ops.attention.entity_attention``.
+
+Weights keep the JAX layout at this interface: ``in_kernel`` (D, 3E),
+``out_kernel`` (E, O), ``out_bias`` (O,).
+
+``launches`` counts the kernel launches of each wrapper, so a run can show its
+main path went through the kernels. One backward launch is the backward
+kernel plus the small kernel that sums its per-block weight gradients.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .attention import entity_attention as plain_entity_attention
+
+launches = {"entity_attn_fwd": 0, "entity_attn_bwd": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ._build import library
+
+        lib = ctypes.CDLL(library("entity_attn"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.entity_attn_plan.argtypes = [i] * 9 + [ip, ip, ip]
+        lib.entity_attn_plan.restype = i
+        lib.entity_attn_fwd.argtypes = [i] + [p] * 7 + [i] * 11 + [p]
+        lib.entity_attn_fwd.restype = i
+        lib.entity_attn_bwd.argtypes = [i] + [p] * 9 + [i] * 11 + [p]
+        lib.entity_attn_bwd.restype = i
+        lib.entity_attn_error_string.argtypes = [i]
+        lib.entity_attn_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.entity_attn_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def _validate(entities, in_kernel, out_kernel, pre_mask, post_mask, n_heads):
+    if entities.dtype not in _DTYPES:
+        raise TypeError(f"entity attention kernel takes float32 or bfloat16, not {entities.dtype}")
+    Bp, Ne, D = entities.shape
+    Nq = post_mask.shape[1]
+    E = in_kernel.shape[1] // 3
+    O = out_kernel.shape[1]
+    tensors = [entities, in_kernel, out_kernel, post_mask]
+    if pre_mask is not None:
+        tensors.append(pre_mask)
+    for t in tensors:
+        if t.device != entities.device:
+            raise ValueError("entity attention: all tensors must be on one device")
+    for w in (in_kernel, out_kernel):
+        if w.dtype != entities.dtype:
+            raise TypeError("entity attention: weights must have the entities' dtype")
+    if in_kernel.shape != (D, 3 * E) or out_kernel.shape != (E, O):
+        raise ValueError("entity attention: weight shapes do not match (D,3E), (E,O)")
+    if post_mask.dtype != torch.bool or post_mask.shape != (Bp, Nq) or not 0 < Nq <= Ne:
+        raise ValueError("entity attention: post_mask must be bool (Bp, Nq) with 0 < Nq <= Ne")
+    if pre_mask is not None and (pre_mask.dtype != torch.bool or pre_mask.dim() != 3
+                                 or pre_mask.shape[0] != Bp or pre_mask.shape[1] < Nq
+                                 or pre_mask.shape[2] != Ne):
+        raise ValueError("entity attention: pre_mask must be bool (Bp, >=Nq, Ne)")
+    if E % n_heads:
+        raise ValueError(f"embed dim {E} is not a multiple of n_heads {n_heads}")
+    return Bp, Ne, Nq, D, E, O
+
+
+def launch_plan(bwd: bool, dims, device_index: int):
+    """(samples per block iteration, grid, dynamic shared memory in bytes) of
+    a launch at ``dims`` = (Bp, Ne, Nq, D, E, O, heads); raises where the
+    widths do not fit one block's shared memory."""
+    lib = _lib()
+    Bp, Ne, Nq, D, E, O, H = dims
+    spb, grid, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.entity_attn_plan(int(bwd), Bp, Ne, Nq, D, E, O, H, device_index,
+                               ctypes.byref(spb), ctypes.byref(grid), ctypes.byref(smem))
+    _check(lib, err, f"entity attention plan (Ne={Ne} D={D} E={E} O={O}: too wide "
+                     "for one block's shared memory?)")
+    return spb.value, grid.value, smem.value
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def kernel_forward(entities, in_kernel, out_kernel, out_bias, pre_mask, post_mask,
+                   n_heads: int) -> torch.Tensor:
+    """Launches the forward kernel on CUDA tensors; returns (Bp, Nq, O)."""
+    Bp, Ne, Nq, D, E, O = _validate(entities, in_kernel, out_kernel, pre_mask, post_mask,
+                                    n_heads)
+    if entities.device.type != "cuda":
+        raise ValueError("kernel_forward takes CUDA tensors")
+    if (out_bias.shape != (O,) or out_bias.dtype != entities.dtype
+            or out_bias.device != entities.device):
+        raise ValueError("entity attention: out_bias must be (O,) like the entities")
+    out = torch.empty((Bp, Nq, O), dtype=entities.dtype, device=entities.device)
+    if Bp == 0:
+        return out
+    lib = _lib()
+    ents, wi, wo, bo = (t.contiguous() for t in (entities, in_kernel, out_kernel, out_bias))
+    pm = None if pre_mask is None else pre_mask.contiguous()
+    qm = post_mask.contiguous()
+    spb, grid, smem = launch_plan(False, (Bp, Ne, Nq, D, E, O, n_heads),
+                                 entities.device.index)
+    stream = torch.cuda.current_stream(entities.device).cuda_stream
+    err = lib.entity_attn_fwd(
+        _DTYPES[entities.dtype], _ptr(ents), _ptr(wi), _ptr(wo), _ptr(bo), _ptr(pm), _ptr(qm),
+        _ptr(out), Bp, Ne, Nq, D, E, O, n_heads, 0 if pm is None else pm.shape[1], spb,
+        grid, smem, stream)
+    _check(lib, err, "entity_attn_fwd launch")
+    launches["entity_attn_fwd"] += 1
+    return out
+
+
+def kernel_backward(entities, in_kernel, out_kernel, pre_mask, post_mask, g,
+                    n_heads: int):
+    """Launches the backward kernel; returns f32 (dEnts, dW_qkv, dW_o, db_o)."""
+    Bp, Ne, Nq, D, E, O = _validate(entities, in_kernel, out_kernel, pre_mask, post_mask,
+                                    n_heads)
+    dev = entities.device
+    if dev.type != "cuda":
+        raise ValueError("kernel_backward takes CUDA tensors")
+    if g.shape != (Bp, Nq, O) or g.device != dev:
+        raise ValueError("entity attention backward: g must be (Bp, Nq, O) on the entities' device")
+    n_w, n_wo = D * 3 * E, E * O
+    dents = torch.empty((Bp, Ne, D), dtype=torch.float32, device=dev)
+    dweights = torch.zeros((n_w + n_wo + O,), dtype=torch.float32, device=dev)
+    if Bp > 0:
+        lib = _lib()
+        ents, wi, wo = (t.contiguous() for t in (entities, in_kernel, out_kernel))
+        gg = g.to(entities.dtype).contiguous()
+        pm = None if pre_mask is None else pre_mask.contiguous()
+        qm = post_mask.contiguous()
+        spb, grid, smem = launch_plan(True, (Bp, Ne, Nq, D, E, O, n_heads), dev.index)
+        partials = torch.empty((grid, n_w + n_wo + O), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.entity_attn_bwd(
+            _DTYPES[entities.dtype], _ptr(ents), _ptr(gg), _ptr(wi), _ptr(wo), _ptr(pm),
+            _ptr(qm), _ptr(dents), _ptr(partials), _ptr(dweights), Bp, Ne, Nq, D, E, O,
+            n_heads, 0 if pm is None else pm.shape[1], spb, grid, smem, stream)
+        _check(lib, err, "entity_attn_bwd launch")
+        launches["entity_attn_bwd"] += 1
+    dwqkv = dweights[:n_w].view(D, 3 * E)
+    dwo = dweights[n_w:n_w + n_wo].view(E, O)
+    dbo = dweights[n_w + n_wo:]
+    return dents, dwqkv, dwo, dbo
+
+
+class EntityAttentionFn(torch.autograd.Function):
+    """Forward kernel forward, backward kernel backward. The masks get no
+    gradient; the f32 gradients are cast to the inputs' dtypes, as the JAX
+    package's ``_bwd`` does (``pallas_attn.py:393-400``)."""
+
+    @staticmethod
+    def forward(ctx, entities, in_kernel, out_kernel, out_bias, pre_mask, post_mask, n_heads):
+        out = kernel_forward(entities, in_kernel, out_kernel, out_bias, pre_mask, post_mask,
+                             n_heads)
+        ctx.save_for_backward(entities, in_kernel, out_kernel, pre_mask, post_mask)
+        ctx.n_heads = n_heads
+        ctx.bias_dtype = out_bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        entities, in_kernel, out_kernel, pre_mask, post_mask = ctx.saved_tensors
+        de, dwi, dwo, dbo = kernel_backward(entities, in_kernel, out_kernel, pre_mask,
+                                            post_mask, g, ctx.n_heads)
+        return (de.to(entities.dtype), dwi.to(in_kernel.dtype), dwo.to(out_kernel.dtype),
+                dbo.to(ctx.bias_dtype), None, None, None)
+
+
+def entity_attention(entities, in_kernel, out_kernel, out_bias, pre_mask, post_mask,
+                     n_heads: int) -> torch.Tensor:
+    """Masked entity attention (see ``ops.attention.entity_attention``): the
+    CUDA kernels on CUDA tensors, the plain PyTorch version on CPU tensors."""
+    if entities.device.type == "cpu":
+        return plain_entity_attention(entities, in_kernel, out_kernel, out_bias, pre_mask,
+                                      post_mask, n_heads)
+    if entities.device.type != "cuda":
+        raise ValueError(f"entity attention has no kernel for device {entities.device}")
+    return EntityAttentionFn.apply(entities, in_kernel, out_kernel, out_bias, pre_mask,
+                                   post_mask, n_heads)

@@ -1,0 +1,201 @@
+"""Experiment orchestration: the classic training loop.
+Port of ``refil_tpu/run.py`` (``run`` -> ``run_sequential``, ``:312-503``).
+
+Each block: a rollout of ``batch_size_run`` episodes, a ring insert, and,
+once the ring holds ``batch_size`` episodes, ``training_iters`` learner
+updates on ``sample_many`` samples; then the periodic greedy test runs and
+logging. Not ported yet, and refused with ``NotImplementedError`` when asked
+for: checkpoints, resume, preemption handling, eval-only runs, the mesh,
+multi-process runs and TensorBoard. ``use_fused_pipeline`` is accepted; the
+classic loop runs and says so once.
+
+Device: ``use_cuda`` (default True) runs on the CUDA card and raises where
+there is none; ``use_cuda=False`` runs on the CPU.
+"""
+from __future__ import annotations
+
+import datetime
+import pprint
+import time
+from os.path import join
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .config import args_sanity_check, config_to_args
+from .controllers.mac import MAC_REGISTRY
+from .core.buffer import ReplayBuffer
+from .envs import ENV_REGISTRY
+from .learners.q_learner import QLearner
+from .runners.vector_runner import VectorRunner
+from .utils.logging import Logger, get_logger
+from .utils.timehelper import time_left, time_str
+
+# config keys whose feature is not ported yet -> the ROADMAP item that holds it
+_UNPORTED = {
+    "checkpoint_path": "checkpoint load/resume (ROADMAP queue A item 9)",
+    "save_model": "checkpoint save (ROADMAP queue A item 9)",
+    "handle_preemption": "preemption handling (ROADMAP queue A item 9)",
+    "evaluate": "eval-only runs (ROADMAP queue A item 9)",
+    "save_replay": "replays (ROADMAP queue A item 9)",
+    "use_tensorboard": "TensorBoard logging (ROADMAP queue A item 9)",
+    "mesh_shape": "the device mesh (ROADMAP queue A item 11)",
+    "distributed": "multi-process runs (ROADMAP queue A item 11)",
+}
+
+
+def resolve_device(args) -> torch.device:
+    """The card when ``use_cuda`` (the default), else the CPU. Never falls
+    back: ``use_cuda`` without a CUDA device raises."""
+    if bool(getattr(args, "use_cuda", True)):
+        if not torch.cuda.is_available():
+            raise RuntimeError("use_cuda=True but no CUDA device is available; pass "
+                               "use_cuda=False to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def refuse_unported(args) -> None:
+    for key, what in _UNPORTED.items():
+        if getattr(args, key, None):
+            raise NotImplementedError(f"{key}={getattr(args, key)!r}: {what} is not ported "
+                                      "to refil_torch yet")
+    if args.env not in ENV_REGISTRY:
+        raise NotImplementedError(f"env {args.env!r} is not ported yet (ROADMAP queue A "
+                                  f"items 7 and 10); ported: {sorted(ENV_REGISTRY)}")
+
+
+def run(config: Dict[str, Any]) -> Dict[str, Any]:
+    """Runs one experiment; returns ``run_sequential``'s summary."""
+    config = args_sanity_check(config)
+    args = config_to_args(config)
+    refuse_unported(args)
+    device = resolve_device(args)
+    logger = Logger(get_logger())
+    logger.console_logger.info("Experiment Parameters:\n\n%s\n",
+                               pprint.pformat(config, indent=4, width=1))
+    args.unique_token = "{}__{}".format(
+        args.name, datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S-%f"))
+    logger.setup_jsonl(join(args.local_results_path, "metrics", args.unique_token + ".jsonl"))
+    try:
+        summary = run_sequential(args, logger, device)
+    finally:
+        logger.close()
+    logger.console_logger.info("Finished")
+    return summary
+
+
+def _generators(seed: int, device: torch.device) -> Dict[str, torch.Generator]:
+    """Independent generators for init, rollout and learner, from ``seed``."""
+    init_s, roll_s, learn_s = np.random.SeedSequence(seed).generate_state(3)
+    return {
+        "init": torch.Generator().manual_seed(int(init_s)),
+        "rollout": torch.Generator(device=device).manual_seed(int(roll_s)),
+        "learner": torch.Generator(device=device).manual_seed(int(learn_s)),
+    }
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]:
+    """The classic loop (``refil_tpu/run.py:411-503``). Returns a summary:
+    counts of blocks, updates and diagnostics, the last learner metrics and
+    the env-steps/s of the training blocks (rollout + insert + updates, timed
+    to a device sync; test runs and logging excluded)."""
+    log = logger.console_logger
+    if bool(getattr(args, "use_fused_pipeline", False)):
+        log.info("use_fused_pipeline=True: the fused block pipeline is not ported yet "
+                 "(ROADMAP queue A item 8); running the classic loop")
+    env = ENV_REGISTRY[args.env](**args.env_args, device=device)
+    env_info = env.env_info()
+    gens = _generators(int(getattr(args, "seed", 0)), device)
+
+    mac = MAC_REGISTRY[args.mac](args, env_info, device, generator=gens["init"])
+    runner = VectorRunner(env, mac, args, logger, generator=gens["rollout"])
+    learner = QLearner(mac, args, env_info, device, generator=gens["learner"],
+                       init_generator=gens["init"])
+    buffer_device = torch.device("cpu") if getattr(args, "buffer_cpu_only", False) else device
+
+    initial_params = [p.detach().clone() for p in learner.params]
+    buffer = None
+    episode = 0
+    last_test_T = -args.test_interval - 1
+    last_log_T = 0
+    start_time = last_time = time.time()
+    counts = {"blocks": 0, "test_blocks": 0, "updates": 0, "iterations": 0, "diag_calls": 0}
+    train_seconds, train_steps = 0.0, 0
+    last_metrics: Dict[str, float] = {}
+    log.info("Beginning training for %s timesteps on %s", args.t_max, device)
+
+    while runner.t_env <= args.t_max:
+        t_block = time.perf_counter()
+        t_before = runner.t_env
+        episode_batch = runner.run(test_mode=False)
+        if buffer is None:
+            buffer = ReplayBuffer(episode_batch, args.buffer_size, seed=args.seed,
+                                  device=buffer_device,
+                                  feature_dtype=getattr(args, "buffer_dtype", "float32"))
+        buffer.insert_episode_batch(episode_batch)
+        counts["blocks"] += 1
+
+        metrics = None
+        if buffer.can_sample(args.batch_size):
+            samples = buffer.sample_many(args.training_iters, args.batch_size, device=device)
+            metrics = learner.train_iters(samples, runner.t_env, episode)
+            counts["updates"] += 1
+            counts["iterations"] += args.training_iters
+        _sync(device)
+        train_seconds += time.perf_counter() - t_block
+        train_steps += runner.t_env - t_before
+
+        if metrics is not None and runner.t_env - learner.log_stats_t >= args.learner_log_interval:
+            last_metrics = {k: float(v) for k, v in metrics.items()}
+            for k, v in last_metrics.items():
+                if k != "loss_td":
+                    logger.log_stat(k, v, runner.t_env)
+            if getattr(args, "test_gt_factors", False):
+                last_sample = {k: v[-1] for k, v in samples.items()}
+                diag = learner.gt_diagnostics(last_sample)
+                if diag:
+                    counts["diag_calls"] += 1
+                    for k, v in diag.items():
+                        logger.log_stat(k, float(v), runner.t_env)
+            learner.log_stats_t = runner.t_env
+        elif metrics is not None:
+            last_metrics = {k: float(v) for k, v in metrics.items()}
+
+        n_test_runs = max(1, args.test_nepisode // runner.batch_size)
+        if (runner.t_env - last_test_T) / args.test_interval >= 1.0:
+            log.info("t_env: %s / %s", runner.t_env, args.t_max)
+            log.info("Estimated time left: %s. Time passed: %s",
+                     time_left(last_time, last_test_T, runner.t_env, args.t_max),
+                     time_str(time.time() - start_time))
+            last_time = time.time()
+            last_test_T = runner.t_env
+            for _ in range(n_test_runs):
+                runner.run(test_mode=True)
+                counts["test_blocks"] += 1
+
+        episode += args.batch_size_run
+        if (runner.t_env - last_log_T) >= args.log_interval:
+            logger.log_stat("episode", episode, runner.t_env)
+            logger.print_recent_stats()
+            last_log_T = runner.t_env
+
+    log.info("Finished Training")
+    return {
+        **counts,
+        "t_env": runner.t_env,
+        "episodes": episode,
+        "episode_limit": runner.episode_limit,
+        "train_seconds": train_seconds,
+        "env_steps_per_s": train_steps / train_seconds if train_seconds else float("nan"),
+        "last_metrics": last_metrics,
+        "params_max_abs_change": max(float((p.detach() - p0).abs().max())
+                                     for p, p0 in zip(learner.params, initial_params)),
+        "device": str(device),
+    }

@@ -1,0 +1,175 @@
+"""Lockstep episode runner, port of ``refil_tpu/runners/vector_runner.py``.
+
+B envs are reset together and stepped ``episode_limit`` times in a Python
+loop; an env that finishes is frozen (its state, observation and hidden state
+stop changing and its outputs are zero). The episode batch follows the
+reference exactly:
+  * ``filled[0] = 1`` and ``filled[t+1] = alive_t`` (env alive at the start
+    of step t), so the terminal observation slot is written;
+  * ``terminated[t] = done_t and not episode_limit_t``;
+  * ``actions_onehot`` is zero (not one-hot of 0) at never-written steps;
+  * every plane has an episode axis of ``episode_limit + 1``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..components.action_selectors import epsilon_greedy
+from ..core.schedules import DecayThenFlatSchedule
+
+
+def _mask_like(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Zero the batch rows of ``x`` where ``flag`` is False."""
+    f = flag.reshape(flag.shape + (1,) * (x.dim() - flag.dim()))
+    return torch.where(f, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _select(flag: torch.Tensor, new, old):
+    """Per-env select between two tensors, dicts or tuples (freeze finished envs)."""
+    if isinstance(new, dict):
+        return {k: _select(flag, new[k], old[k]) for k in new}
+    if isinstance(new, tuple):
+        return type(new)(*(_select(flag, n, o) for n, o in zip(new, old)))
+    f = flag.reshape(flag.shape + (1,) * (new.dim() - flag.dim()))
+    return torch.where(f, new, old)
+
+
+class VectorRunner:
+    def __init__(self, env, mac, args, logger=None, generator=None):
+        self.env = env
+        self.mac = mac
+        self.args = args
+        self.logger = logger
+        self.generator = generator
+        self.batch_size = args.batch_size_run
+        info = env.env_info()
+        self.episode_limit = info["episode_limit"]
+        self.n_agents = info["n_agents"]
+        self.n_actions = info["n_actions"]
+        self.t_env = 0
+        self.schedule = DecayThenFlatSchedule(args.epsilon_start, args.epsilon_finish,
+                                              args.epsilon_anneal_time, decay="linear")
+        self.epsilon = self.schedule.eval(0)
+        if getattr(args, "action_selector", "epsilon_greedy") != "epsilon_greedy" or \
+                getattr(args, "agent_output_type", "q") != "q":
+            raise NotImplementedError("only the epsilon-greedy selector over Q-values is "
+                                      "ported (ROADMAP queue A item 3)")
+        self.train_stats: Dict[str, float] = {}
+        self.test_stats: Dict[str, float] = {}
+        self.train_returns: List[float] = []
+        self.test_returns: List[float] = []
+        self.log_train_stats_t = -1000000
+
+    @torch.no_grad()
+    def rollout(self, epsilon: float, batch_size: int, test: bool = False,
+                env_draws: Optional[dict] = None):
+        """One block of ``batch_size`` episodes. ``env_draws`` =
+        {"reset": draws, "step": [draws per step]} feeds the env explicit
+        randomness (tests); otherwise the runner's generator draws it.
+        Returns (batch dict (B, T+1, ...), stats dict of host arrays)."""
+        env, mac, gen = self.env, self.mac, self.generator
+        B, T = batch_size, self.episode_limit
+        dev = mac.device
+        state, obs = env.reset(B, generator=gen, test=test,
+                               draws=None if env_draws is None else env_draws["reset"])
+        obs0 = obs
+        hidden = mac.init_hidden(B)
+        alive = torch.ones((B,), dtype=torch.bool, device=dev)
+        last_oh = torch.zeros((B, self.n_agents, self.n_actions), device=dev)
+        ep_ret = torch.zeros((B,), device=dev)
+        ep_len = torch.zeros((B,), dtype=torch.long, device=dev)
+        solved = torch.zeros((B,), device=dev)
+        outs = {"actions": [], "reward": [], "terminated": [], "filled": [], "obs": []}
+
+        for t in range(T):
+            q, hidden_new = mac.forward_step(obs, last_oh, hidden)
+            actions = epsilon_greedy(q, obs["avail_actions"], epsilon, generator=gen)
+            step_draws = None if env_draws is None else env_draws["step"][t]
+            n_state, n_obs, rew, done, info = env.step(state, actions, generator=gen,
+                                                       draws=step_draws)
+            env_term = done & ~info["episode_limit"]
+
+            state = _select(alive, n_state, state)
+            obs = _select(alive, n_obs, obs)
+            hidden = _select(alive, hidden_new, hidden)
+            actions = _mask_like(alive, actions)
+            last_oh = _mask_like(alive, torch.nn.functional.one_hot(
+                actions, self.n_actions).float())
+            ep_ret = ep_ret + _mask_like(alive, rew)
+            ep_len = ep_len + alive.long()
+            solved = torch.where(alive & done, info["solved"].float(), solved)
+
+            outs["actions"].append(actions)
+            outs["reward"].append(_mask_like(alive, rew))
+            outs["terminated"].append(env_term & alive)
+            outs["filled"].append(alive)
+            outs["obs"].append({k: _mask_like(alive, v) for k, v in obs.items()})
+            alive = alive & ~done
+
+        def seq(xs):  # T x (B, ...) -> (B, T+1, ...) with a zero last slot
+            x = torch.stack(xs, dim=1)
+            return torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+
+        batch = {k: torch.stack([obs0[k]] + [o[k] for o in outs["obs"]], dim=1) for k in obs0}
+        actions = seq(outs["actions"])
+        filled = torch.stack(outs["filled"], dim=1)[..., None]
+        filled = torch.cat([torch.ones_like(filled[:, :1]), filled], dim=1)
+        # actions at t were written iff the env was alive at the start of t
+        written = torch.cat([filled[:, 1:, 0], torch.zeros_like(filled[:, :1, 0])], dim=1)
+        batch.update(
+            actions=actions,
+            actions_onehot=torch.nn.functional.one_hot(actions, self.n_actions).float()
+            * written[:, :, None, None],
+            reward=seq(outs["reward"])[..., None],
+            terminated=seq(outs["terminated"])[..., None],
+            filled=filled,
+        )
+        stats = {"ep_returns": ep_ret.cpu().numpy(), "ep_lengths": ep_len.cpu().numpy(),
+                 "final_info": {"solved": solved.cpu().numpy()}}
+        return batch, stats
+
+    def run(self, test_mode: bool = False) -> Dict[str, torch.Tensor]:
+        """One episode block with the scheduled epsilon (0 in test mode);
+        accounts its stats and returns the episode batch."""
+        self.epsilon = self.schedule.eval(self.t_env)
+        eps = 0.0 if test_mode else self.epsilon
+        batch, stats = self.rollout(eps, self.batch_size, test=test_mode)
+        if not test_mode:
+            self.t_env += int(stats["ep_lengths"].sum())
+        self.account_block(stats, test_mode=test_mode)
+        return batch
+
+    def account_block(self, stats, test_mode: bool = False) -> None:
+        """Fold one block's host stats into the accumulators and log on the
+        reference's cadence."""
+        block_bs = int(stats["ep_returns"].shape[0])
+        cur_stats = self.test_stats if test_mode else self.train_stats
+        cur_returns = self.test_returns if test_mode else self.train_returns
+        for k, v in stats["final_info"].items():
+            cur_stats[k] = float(v.sum()) + cur_stats.get(k, 0.0)
+        cur_stats["n_episodes"] = block_bs + cur_stats.get("n_episodes", 0)
+        cur_stats["ep_length"] = float(stats["ep_lengths"].sum()) + cur_stats.get("ep_length", 0.0)
+        cur_returns.extend(stats["ep_returns"].tolist())
+
+        if self.logger is None:
+            return
+        n_test_runs = max(1, self.args.test_nepisode // self.batch_size) * self.batch_size
+        if test_mode and len(self.test_returns) == n_test_runs:
+            self._log(cur_returns, cur_stats, "test_")
+        elif not test_mode and self.t_env - self.log_train_stats_t >= self.args.runner_log_interval:
+            self._log(cur_returns, cur_stats, "")
+            self.logger.log_stat("epsilon", self.epsilon, self.t_env)
+            self.log_train_stats_t = self.t_env
+
+    def _log(self, returns, stats, prefix):
+        self.logger.log_stat(prefix + "return_mean", float(np.mean(returns)), self.t_env)
+        self.logger.log_stat(prefix + "return_std", float(np.std(returns)), self.t_env)
+        returns.clear()
+        for k, v in stats.items():
+            if k != "n_episodes":
+                self.logger.log_stat(prefix + k + "_mean", v / stats["n_episodes"], self.t_env)
+        stats.clear()
+

@@ -1,0 +1,90 @@
+"""refil_torch's CLI end to end on the CPU, its device rule, the features it
+refuses, and the rule that the port imports nothing of JAX."""
+import ast
+import glob
+import math
+import os
+
+import pytest
+import torch
+
+from refil_torch import main as tmain
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["attn_embed_dim=16", "hypernet_embed=16", "mixing_embed_dim=8", "attn_n_heads=2",
+        "rnn_hidden_dim=16", "batch_size_run=4", "batch_size=4", "training_iters=2",
+        "test_nepisode=4", "env_args.episode_limit=10", "t_max=60"]
+
+
+def _cli(tmp_path, alg, *extra):
+    return ["--config=" + alg, "--env-config=group_matching", "with", *TINY,
+            f"local_results_path={tmp_path}", *extra]
+
+
+@pytest.mark.parametrize("alg", ["refil_group_matching", "qmix_atten_group_matching"])
+def test_cli_trains_on_cpu(tmp_path, alg):
+    summary = tmain.main(_cli(tmp_path, alg, "use_cuda=False"))
+    assert summary["device"] == "cpu"
+    assert summary["updates"] >= 1 and summary["iterations"] == 2 * summary["updates"]
+    assert math.isfinite(summary["last_metrics"]["loss"])
+    assert summary["t_env"] > 60 and summary["test_blocks"] >= 1
+    metrics = glob.glob(os.path.join(tmp_path, "metrics", "*.jsonl"))
+    assert len(metrics) == 1 and os.path.getsize(metrics[0]) > 0
+
+
+def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="use_cuda"):
+        tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=True"))
+
+
+@pytest.mark.parametrize("extra", ["save_model=True", "handle_preemption=True",
+                                   "checkpoint_path=somewhere", "evaluate=True",
+                                   "mesh_shape={'data':2}", "use_tensorboard=True",
+                                   "agent=imagine_entity_attend_rnn", "td_lambda=0.8"])
+def test_unported_features_raise(tmp_path, extra):
+    with pytest.raises(NotImplementedError):
+        tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=False", extra))
+
+
+def test_cli_parse_matches_reference():
+    from refil_tpu.main import parse_cli as jparse
+
+    argv = ["--config=refil", "--env-config=group_matching", "with", "lr=0.1", "seed=3"]
+    assert tmain.parse_cli(argv) == jparse(argv)
+    with pytest.raises(SystemExit):
+        tmain.parse_cli(["bogus"])
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = glob.glob(os.path.join(ROOT, "refil_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 20
+    banned = ("jax", "flax", "optax", "refil_tpu", "jaxlib", "chex")
+    for path in files:
+        for mod in _imports(path):
+            assert mod.split(".")[0] not in banned, (path, mod)
+
+
+def test_port_config_files_mirror_the_reference():
+    ref = sorted(os.path.relpath(p, os.path.join(ROOT, "refil_tpu", "config"))
+                 for p in glob.glob(os.path.join(ROOT, "refil_tpu", "config", "**", "*.yaml"),
+                                    recursive=True))
+    port = sorted(os.path.relpath(p, os.path.join(ROOT, "refil_torch", "config"))
+                  for p in glob.glob(os.path.join(ROOT, "refil_torch", "config", "**", "*.yaml"),
+                                     recursive=True))
+    assert port == ref
+    from refil_torch.config import load_config as tload
+    from refil_tpu.config import load_config as jload
+
+    for alg in ("refil_group_matching", "qmix_atten_group_matching"):
+        assert set(tload(alg, "group_matching")) == set(jload(alg, "group_matching"))
