@@ -7,23 +7,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
   1. device: the card's name and power limit, torch and CUDA versions; TF32
      off for matmuls and cuDNN, so the plain versions are true float32.
   2. build: nvcc builds every ``refil_torch/csrc/*.cu`` for sm_90a from the
-     sources in this checkout; prints the build time and ptxas's registers
-     and shared memory per kernel.
-  3. kernels: the entity-attention forward and backward kernels against the
-     plain PyTorch version on the card, at every shape of the Group Matching
-     slice in float32 and bfloat16, plus an Nq < Ne case with a fully blocked
-     row, a post-masked row, no pre-mask and a batch that is not a multiple of
-     the block's samples. Times by CUDA events after warm-up: the kernel, the
-     plain version and a PyTorch yardstick (matmul + scaled_dot_product_attention),
-     beside the least time the card could take (``bound_ms``).
-  4. slice: ``refil_torch.main`` trains refil_group_matching on Group
-     Matching for at least 16 learner updates; prints the last metrics, the
-     env-steps/s of the training blocks and the kernels' launch counts, and
-     checks them against the counts the run's shapes imply.
-  5. the ``kernels`` line and the last line ``{"ok": true, "device": ...}``.
+     sources in this checkout, one nvcc each, all at once; prints the build
+     time and ptxas's registers and shared memory per kernel.
+  3. kernels: each kernel against its plain PyTorch version on the card, in
+     float32 and bfloat16: the entity-attention forward and backward at every
+     shape of the Group Matching slice and of the combat slice (plus an
+     Nq < Ne case with a fully blocked row, a post-masked row, no pre-mask,
+     and batches that are not a multiple of the block's samples, one of them
+     at the combat widths); the GRU forward and backward at every shape of
+     the combat slice and a ragged one. Times by CUDA events after warm-up:
+     the kernel, the plain version and a PyTorch yardstick (attention:
+     matmul + scaled_dot_product_attention; GRU: cuDNN ``torch.nn.GRU``,
+     beside the hoisted input matmul plus the kernel), beside the least time
+     the card could take (``bound_ms``).
+  4. slice, Group Matching: ``refil_torch.main`` trains refil_group_matching
+     for at least 8 learner updates; checks the loss, the parameters and the
+     kernels' launch counts against the counts the run's shapes imply.
+  5. slice, combat: ``refil_torch.main`` trains the flagship refil on
+     entity_battle 3-8sz_symmetric at the config's full width for at least 4
+     learner updates; prints env-steps/s and the last metrics (with
+     battle_won_mean) and checks the four kernels' launch counts.
+  6. the ``kernels`` line and the last line ``{"ok": true, "device": ...}``.
 
-It exits non-zero, printing no result, where CUDA is not available or the
-``refil_torch`` package is not beside it.
+Each slice phase sets the launch counts to 0 just before it drives its path
+and reads them just after. It exits non-zero, printing no result, where CUDA
+is not available or the ``refil_torch`` package is not beside it.
 """
 from __future__ import annotations
 
@@ -44,11 +52,30 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {"fwd": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
        "bwd": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
 
-# (name, Bp): every entity-attention call of one refil_group_matching update
-# and of a rollout step; Ne = Nq = 8, D = E = O = 64, 4 heads
-SLICE_SHAPES = [("agent_x3", 4896), ("target_agent", 1632), ("mixer", 1600),
-                ("rollout", 8)]
-NE, NQ, WIDTH, HEADS = 8, 8, 64, 4
+HEADS = 4
+# (slice, name, Bp, Ne, Nq, pre-mask rows, width): every entity-attention call
+# of one learner update and of a rollout step. Group Matching
+# (refil_group_matching): Ne = Nq = 8, D = E = O = 64. Combat (refil on
+# 3-8sz_symmetric: batch 32 of 151 steps, 8 agents and 8 enemies): Ne = 16,
+# Nq = 8, D = E = O = 128; the agents' pre-masks are square (Ne rows), the
+# hypernets' Na rows, their imagined masks square.
+ATTN_SHAPES = [
+    ("group_matching", "agent_x3", 4896, 8, 8, 8, 64),
+    ("group_matching", "target_agent", 1632, 8, 8, 8, 64),
+    ("group_matching", "mixer", 1600, 8, 8, 8, 64),
+    ("group_matching", "rollout", 8, 8, 8, 8, 64),
+    ("combat", "agent_x3", 14496, 16, 8, 16, 128),
+    ("combat", "target_agent", 4832, 16, 8, 16, 128),
+    ("combat", "mixer", 4800, 16, 8, 8, 128),
+    ("combat", "mixer_imagined", 4800, 16, 8, 16, 128),
+    ("combat", "target_mixer", 4832, 16, 8, 8, 128),
+    ("combat", "rollout", 8, 16, 8, 16, 128),
+]
+# (name, T, R): every GRU call of the combat slice (H = 64): the agent x3 and
+# the target agent over whole episodes, the rollout step; and a ragged one
+GRU_HIDDEN = 64
+GRU_SHAPES = [("agent_x3", 151, 768), ("target_agent", 151, 256), ("rollout", 1, 64),
+              ("ragged", 13, 37)]
 
 
 def emit(phase: str, **fields) -> None:
@@ -104,11 +131,13 @@ def library_attention(ents, wi, wo, bo, pre_mask, post_mask, n_heads):
 
 def cost(Bp, Ne, Nq, D, E, O, dtype, pre: bool, bwd: bool):
     """(bytes, flops) the function needs: each input read once, each output
-    written once; multiply-adds count 2 operations."""
+    written once; multiply-adds count 2 operations. K and V are projected
+    for all Ne rows, Q only for the Nq rows that query (the kernels project
+    Q for all Ne rows; that extra work is not counted)."""
     b = torch.tensor([], dtype=dtype).element_size()
     weights = (D * 3 * E + E * O + O) * b
     masks = Bp * Nq * (Ne if pre else 0) + Bp * Nq
-    qkv = 2 * Bp * Ne * D * 3 * E
+    qkv = 2 * Bp * (Ne * 2 * E + Nq * E) * D
     scores = 2 * 2 * Bp * Nq * Ne * E  # q k^T and w v
     proj = 2 * Bp * Nq * E * O
     if not bwd:
@@ -117,6 +146,27 @@ def cost(Bp, Ne, Nq, D, E, O, dtype, pre: bool, bwd: bool):
     writes = Bp * Ne * D * 4 + (D * 3 * E + E * O + O) * 4
     flops = qkv + scores + 2 * proj + 2 * scores + 2 * qkv  # recompute + VJPs
     return reads + writes, flops
+
+
+def gru_cost(T, R, H, dtype, bwd: bool):
+    """(bytes, flops) of the GRU recurrence: each input read once, each
+    output written once; the operations are the recurrent products'
+    multiply-adds (2 each; the gates' elementwise work, under 5%, is not
+    counted): h @ W_h per step forward; backward, its recomputation,
+    dgh @ W_h^T and h^T @ dgh."""
+    b = torch.tensor([], dtype=dtype).element_size()
+    weights = (H * 3 * H + H) * 4
+    product = 2 * T * R * H * 3 * H
+    if not bwd:
+        return T * R * 3 * H * b + weights + R * H * 4 + T * R * H * b, product
+    reads = T * R * 3 * H * b + 2 * T * R * H * b + R * H * 4 + weights
+    writes = T * R * 3 * H * 4 + weights + R * H * 4
+    return reads + writes, 3 * product
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def cuda_time_ms(fn, iters=20, warmup=3) -> float:
@@ -172,17 +222,19 @@ def phase_build():
              wall_seconds=round(wall, 2), ptxas=ptxas)
     from refil_torch.ops import entity_attn
 
-    for Bp in sorted({bp for _, bp in SLICE_SHAPES}):
-        for bwd in (False, True):
-            spb, grid, smem = entity_attn.launch_plan(
-                bwd, (Bp, NE, NQ, WIDTH, WIDTH, WIDTH, HEADS), torch.cuda.current_device())
-            emit("launch_plan", kernel="entity_attn_bwd" if bwd else "entity_attn_fwd", Bp=Bp,
-                 samples_per_block_iteration=spb, grid=grid, dynamic_shared_memory_bytes=smem)
+    for path, _, Bp, ne, nq, _, width in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for bwd in (False, True):
+                plan = entity_attn.launch_plan(bwd, dtype, (Bp, ne, nq, width, width, width,
+                                                            HEADS), torch.cuda.current_device())
+                emit("launch_plan", kernel="entity_attn_bwd" if bwd else "entity_attn_fwd",
+                     path=path, Bp=Bp, width=width, dtype=str(dtype).replace("torch.", ""),
+                     **plan._asdict())
     return built
 
 
 def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, seed=0,
-               timing=False):
+               timing=False, path=None):
     from refil_torch.ops import entity_attn
     from refil_torch.ops.attention import entity_attention as plain
 
@@ -210,7 +262,8 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
     names = ("d_entities", "d_in_kernel", "d_out_kernel", "d_out_bias")
     bwd_err = {n: scaled_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
     tol_f, tol_b = TOL["fwd"][dtype], TOL["bwd"][dtype]
-    row = dict(case=tag, Bp=Bp, Ne=Ne, Nq=Nq, D=D, E=E, O=O, heads=H,
+    row = dict(kernel="entity_attn", path=path, case=tag, Bp=Bp, Ne=Ne, Nq=Nq, D=D, E=E, O=O,
+               heads=H, mask_rows=mask_rows or Nq,
                dtype=str(dtype).replace("torch.", ""), pre_mask=pre,
                fwd_max_abs_err=fwd_err, fwd_tol=tol_f, bwd_scaled_err=bwd_err, bwd_tol=tol_b,
                bwd_max_abs_err=max(max_err(a, b) for a, b in zip(grads_k, grads_p)))
@@ -232,29 +285,114 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
         }
         for kind in ("fwd", "bwd"):
             nbytes, flops = cost(Bp, Ne, Nq, D, E, O, dtype, pre, kind == "bwd")
-            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
             row[f"{kind}_bytes"], row[f"{kind}_flops"] = nbytes, flops
-            row[f"{kind}_bound_ms"] = max(t_bytes, t_ops)
-            row[f"{kind}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound(nbytes, flops, dtype)
     emit("kernels_check", ok=ok, **row)
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {tag} {dtype}")
     return row
 
 
+def make_gru_inputs(T, R, H, dtype, seed):
+    """xs (R, T, H) and GRUSequence-style weights: U(+-1/sqrt(H)) everywhere."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = lambda *shape: (torch.rand(shape, generator=g, device="cuda") * 2 - 1) / math.sqrt(H)
+    xs = torch.randn((R, T, H), generator=g, device="cuda").to(dtype)
+    wi, bi, wh, bhn = u(H, 3 * H), u(3 * H), u(H, 3 * H), u(H)
+    h0 = 0.5 * torch.randn((R, H), generator=g, device="cuda")
+    gout = torch.randn((T, R, H), generator=g, device="cuda").to(dtype)
+    return xs, wi, bi, wh, bhn, h0, gout
+
+
+def library_gru(xs, wi, bi, wh, bhn, h0):
+    """Yardstick: cuDNN's torch.nn.GRU over the same xs and weights (its
+    b_hr = b_hz = 0; b_in with the input projection). Timed here only; the
+    port never calls it."""
+    R, T, D = xs.shape
+    H = wh.shape[0]
+    gru = torch.nn.GRU(D, H, batch_first=True).cuda()
+    with torch.no_grad():
+        gru.weight_ih_l0.copy_(wi.T)
+        gru.weight_hh_l0.copy_(wh.T)
+        gru.bias_ih_l0.copy_(bi)
+        gru.bias_hh_l0.copy_(torch.cat([torch.zeros(2 * H, device="cuda"), bhn]))
+    return gru
+
+
+def check_gru(tag, T, R, H, dtype, seed=0, timing=False):
+    from refil_torch.ops import gru_kernel
+    from refil_torch.ops.gru import gru_sequence as plain
+
+    xs, wi, bi, wh, bhn, h0, gout = make_gru_inputs(T, R, H, dtype, seed)
+    hoist = lambda: (torch.matmul(xs, wi.to(dtype)) + bi.to(dtype)).transpose(0, 1).contiguous()
+    xw = hoist()
+    hs_k = gru_kernel.kernel_forward(xw, wh, bhn, h0)
+    hs_p = plain(xw, wh, bhn, h0)
+    torch.cuda.synchronize()
+    fwd_err = max_err(hs_k, hs_p)
+    if not torch.isfinite(hs_k.float()).all():
+        raise AssertionError(f"gru {tag}: forward kernel gave a non-finite value")
+    grads_k = gru_kernel.kernel_backward(xw, hs_k, h0, wh, bhn, gout)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xw, wh, bhn, h0)]
+    out_ref = plain(*leaves)
+    grads_p = torch.autograd.grad(out_ref, leaves, gout, retain_graph=True)
+    torch.cuda.synchronize()
+    names = ("d_xw", "d_wh", "d_bhn", "d_h0")
+    bwd_err = {n: scaled_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    tol_f, tol_b = TOL["fwd"][dtype], TOL["bwd"][dtype]
+    row = dict(kernel="gru", path="combat", case=tag, T=T, R=R, H=H,
+               dtype=str(dtype).replace("torch.", ""), fwd_max_abs_err=fwd_err, fwd_tol=tol_f,
+               bwd_scaled_err=bwd_err, bwd_tol=tol_b,
+               bwd_max_abs_err=max(max_err(a, b) for a, b in zip(grads_k, grads_p)))
+    ok = fwd_err <= tol_f and all(v <= tol_b for v in bwd_err.values())
+    if timing:
+        ms = {
+            "fwd": cuda_time_ms(lambda: gru_kernel.kernel_forward(xw, wh, bhn, h0)),
+            "fwd_plain": cuda_time_ms(lambda: plain(xw, wh, bhn, h0), iters=5),
+            "hoisted_matmul_plus_fwd": cuda_time_ms(
+                lambda: gru_kernel.kernel_forward(hoist(), wh, bhn, h0)),
+            "bwd": cuda_time_ms(lambda: gru_kernel.kernel_backward(xw, hs_k, h0, wh, bhn, gout)),
+            "bwd_plain": cuda_time_ms(
+                lambda: torch.autograd.grad(out_ref, leaves, gout, retain_graph=True), iters=5),
+        }
+        if dtype == torch.float32:  # cuDNN's GRU in float32 only
+            gru = library_gru(xs, wi, bi, wh, bhn, h0)
+            xs_l = xs.detach().clone().requires_grad_(True)
+            out_l, _ = gru(xs_l, h0[None])
+            row["library_fwd_max_abs_err"] = max_err(out_l.transpose(0, 1), hs_p)
+            lib_leaves = [xs_l, *gru.parameters()]
+            gl = gout.transpose(0, 1)
+            ms["fwd_library"] = cuda_time_ms(lambda: gru(xs, h0[None]))
+            ms["bwd_library"] = cuda_time_ms(
+                lambda: torch.autograd.grad(out_l, lib_leaves, gl, retain_graph=True))
+        row["ms"] = ms
+        for kind in ("fwd", "bwd"):
+            nbytes, flops = gru_cost(T, R, H, dtype, kind == "bwd")
+            row[f"{kind}_bytes"], row[f"{kind}_flops"] = nbytes, flops
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound(nbytes, flops, dtype)
+    emit("kernels_check", ok=ok, **row)
+    if not ok:
+        raise AssertionError(f"GRU kernel disagrees with its plain version: {tag} {dtype}")
+    return row
+
+
 def phase_kernels():
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (tag, Bp) in enumerate(SLICE_SHAPES):
-            rows.append(check_case(tag, Bp, NE, NQ, WIDTH, WIDTH, WIDTH, HEADS, dtype,
-                                   seed=i, timing=True))
+        for i, (path, tag, Bp, ne, nq, mrows, w) in enumerate(ATTN_SHAPES):
+            rows.append(check_case(tag, Bp, ne, nq, w, w, w, HEADS, dtype, mask_rows=mrows,
+                                   seed=i, timing=True, path=path))
         # Nq < Ne, Bp not a multiple of the block's samples, a pre-mask with
         # more rows than queries, and no pre-mask at all
-        rows.append(check_case("nq_lt_ne", 37, NE, 5, WIDTH, WIDTH, WIDTH, HEADS, dtype,
-                               mask_rows=NE, seed=11))
-        rows.append(check_case("nq_lt_ne_no_pre_mask", 37, NE, 5, WIDTH, WIDTH, WIDTH, HEADS,
-                               dtype, pre=False, seed=12))
+        rows.append(check_case("nq_lt_ne", 37, 8, 5, 64, 64, 64, HEADS, dtype, mask_rows=8,
+                               seed=11))
+        rows.append(check_case("nq_lt_ne_no_pre_mask", 37, 8, 5, 64, 64, 64, HEADS, dtype,
+                               pre=False, seed=12))
         rows.append(check_case("narrow_uneven", 3, 6, 6, 24, 32, 16, 2, dtype, seed=13))
+        rows.append(check_case("combat_widths_uneven", 37, 16, 8, 128, 128, 128, HEADS, dtype,
+                               mask_rows=16, seed=14))
+        for i, (tag, T, R) in enumerate(GRU_SHAPES):
+            rows.append(check_gru(tag, T, R, GRU_HIDDEN, dtype, seed=20 + i, timing=True))
     return rows
 
 
@@ -262,64 +400,121 @@ def phase_kernels():
 # attention calls: agent x3 (fwd+bwd), target agent (fwd), mixer chosen path
 # hyper_w_1 + V (fwd+bwd), imagined path hyper_w_1 x2 + V (fwd+bwd), target
 # mixer hyper_w_1 + V (fwd). A rollout step is one forward; a gt diagnostic is
-# two imagine passes of agent + hyper_w_1 x2 + V.
-FWD_PER_ITER, BWD_PER_ITER, FWD_PER_DIAG = 9, 6, 8
-SLICE_T_MAX = 8000  # >= 21 blocks of <= 400 env steps: >= 18 learner updates
+# two imagine passes of agent + hyper_w_1 x2 + V. The FF agent runs no GRU.
+GM_FWD_PER_ITER, GM_BWD_PER_ITER, GM_FWD_PER_DIAG = 9, 6, 8
+GM_T_MAX = 8000  # >= 21 blocks of <= 400 env steps: >= 18 learner updates
+# one refil (combat) learner update launches 15 forward and 10 backward
+# attention calls: agent x3 (fwd+bwd), target agent (fwd), mixer chosen path
+# hyper_w_1, hyper_b_1, hyper_w_final, V (fwd+bwd), imagined path hyper_w_1 x2,
+# hyper_b_1, hyper_w_final, V (fwd+bwd), target mixer 4 (fwd); and 2 GRU
+# forwards (agent x3, target agent) and 1 GRU backward. A rollout step is one
+# attention and one GRU forward (T = 1).
+CB_FWD_PER_ITER, CB_BWD_PER_ITER, CB_GRU_FWD_PER_ITER, CB_GRU_BWD_PER_ITER = 15, 10, 2, 1
+# >= 7 blocks of <= 8 x 150 env steps: the ring holds batch_size 32 episodes
+# after 4 blocks, so >= 4 learner updates of 8 iterations
+CB_T_MAX = 7200
+KERNEL_LAUNCHES = ("entity_attn_fwd", "entity_attn_bwd", "gru_fwd", "gru_bwd")
 
 
-def phase_slice(name_power):
+def reset_launches():
+    from refil_torch.ops import entity_attn, gru_kernel
+
+    entity_attn.reset_launches()
+    gru_kernel.reset_launches()
+
+
+def read_launches():
+    from refil_torch.ops import entity_attn, gru_kernel
+
+    return {**entity_attn.launches, **gru_kernel.launches}
+
+
+def run_slice(path, argv, name_power, min_updates):
     from refil_torch import main as tmain
-    from refil_torch.ops import entity_attn
 
-    out_dir = os.path.join(HERE, "results", "torch_smoke")
-    argv = ["--config=refil_group_matching", "--env-config=group_matching", "with",
-            f"t_max={SLICE_T_MAX}", "use_cuda=True", f"local_results_path={out_dir}"]
-    entity_attn.reset_launches()  # count only the main path's launches
+    reset_launches()  # count only this path's launches
     t0 = time.perf_counter()
     summary = tmain.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(entity_attn.launches)
-
-    steps = summary["episode_limit"] * (summary["blocks"] + summary["test_blocks"])
-    expected = {
-        "entity_attn_fwd": FWD_PER_ITER * summary["iterations"] + steps
-        + FWD_PER_DIAG * summary["diag_calls"],
-        "entity_attn_bwd": BWD_PER_ITER * summary["iterations"],
-    }
+    launches = read_launches()
     loss = summary["last_metrics"].get("loss", float("nan"))
-    emit("slice", command="python -m refil_torch.main " + " ".join(argv), wall_seconds=wall,
-         card=name_power, env_steps_per_s=summary["env_steps_per_s"],
-         train_seconds=summary["train_seconds"], t_env=summary["t_env"],
-         blocks=summary["blocks"], test_blocks=summary["test_blocks"],
-         updates=summary["updates"], iterations=summary["iterations"],
-         diag_calls=summary["diag_calls"], last_metrics=summary["last_metrics"],
-         params_max_abs_change=summary["params_max_abs_change"],
-         launches=launches, expected_launches=expected)
-    if summary["updates"] < 16:
-        raise AssertionError(f"only {summary['updates']} learner updates ran")
+    row = dict(path=path, command="python -m refil_torch.main " + " ".join(argv),
+               wall_seconds=wall, card=name_power, env_steps_per_s=summary["env_steps_per_s"],
+               train_seconds=summary["train_seconds"], t_env=summary["t_env"],
+               blocks=summary["blocks"], test_blocks=summary["test_blocks"],
+               updates=summary["updates"], iterations=summary["iterations"],
+               diag_calls=summary["diag_calls"], last_metrics=summary["last_metrics"],
+               last_logged=summary["last_logged"],
+               params_max_abs_change=summary["params_max_abs_change"], launches=launches)
+    if summary["updates"] < min_updates:
+        raise AssertionError(f"{path}: only {summary['updates']} learner updates ran")
     if not math.isfinite(loss):
-        raise AssertionError(f"loss is not finite: {loss}")
+        raise AssertionError(f"{path}: loss is not finite: {loss}")
     if not summary["params_max_abs_change"] > 0:
-        raise AssertionError("training did not change the parameters")
-    if min(launches.values()) <= 0 or launches != expected:
-        raise AssertionError(f"kernel launches {launches} != expected {expected}")
+        raise AssertionError(f"{path}: training did not change the parameters")
+    return summary, launches, row
+
+
+def phase_group_matching(name_power):
+    out_dir = os.path.join(HERE, "results", "torch_smoke")
+    argv = ["--config=refil_group_matching", "--env-config=group_matching", "with",
+            f"t_max={GM_T_MAX}", "use_cuda=True", f"local_results_path={out_dir}"]
+    summary, launches, row = run_slice("group_matching", argv, name_power, 8)
+    it = summary["iterations"]
+    steps = summary["episode_limit"] * (summary["blocks"] + summary["test_blocks"])
+    expected = {"entity_attn_fwd": GM_FWD_PER_ITER * it + steps
+                + GM_FWD_PER_DIAG * summary["diag_calls"],
+                "entity_attn_bwd": GM_BWD_PER_ITER * it, "gru_fwd": 0, "gru_bwd": 0}
+    emit("slice", **row, expected_launches=expected)
+    if launches != expected or min(launches["entity_attn_fwd"], launches["entity_attn_bwd"]) <= 0:
+        raise AssertionError(f"group_matching: kernel launches {launches} != expected {expected}")
     return launches
 
 
-def kernels_line(rows, launches):
+def phase_combat(name_power):
+    out_dir = os.path.join(HERE, "results", "torch_smoke")
+    argv = ["--config=refil", "--env-config=entity_battle", "with", "scenario=3-8sz_symmetric",
+            "test_nepisode=8", f"t_max={CB_T_MAX}", "use_cuda=True",
+            f"local_results_path={out_dir}"]
+    summary, launches, row = run_slice("combat", argv, name_power, 4)
+    it = summary["iterations"]
+    steps = summary["episode_limit"] * (summary["blocks"] + summary["test_blocks"])
+    expected = {"entity_attn_fwd": CB_FWD_PER_ITER * it + steps,
+                "entity_attn_bwd": CB_BWD_PER_ITER * it,
+                "gru_fwd": CB_GRU_FWD_PER_ITER * it + steps,
+                "gru_bwd": CB_GRU_BWD_PER_ITER * it}
+    emit("slice", **row, expected_launches=expected)
+    if "battle_won_mean" not in summary["last_logged"]:
+        raise AssertionError("combat: the runner logged no battle_won_mean")
+    if launches != expected or min(launches.values()) <= 0:
+        raise AssertionError(f"combat: kernel launches {launches} != expected {expected}")
+    return launches
+
+
+def kernels_line(rows, launches_by_path):
     """One entry per ported kernel, its numbers from the largest call of the
-    slice (agent x3, Bp = 4896, float32)."""
-    row = next(r for r in rows if r["case"] == "agent_x3" and r["dtype"] == "float32")
+    combat slice in float32 (attention: agent x3, Bp = 14496; GRU: agent x3,
+    T = 151, R = 768); ``launches`` from the combat slice's run, and the
+    Group Matching slice's beside it."""
+    attn = next(r for r in rows if r["kernel"] == "entity_attn" and r["path"] == "combat"
+                and r["case"] == "agent_x3" and r["dtype"] == "float32")
+    gru = next(r for r in rows if r["kernel"] == "gru" and r["case"] == "agent_x3"
+               and r["dtype"] == "float32")
     out = []
-    for kind, name, line in (("fwd", "entity_attn_fwd", 87), ("bwd", "entity_attn_bwd", 224)):
-        err = row["fwd_max_abs_err"] if kind == "fwd" else row["bwd_max_abs_err"]
+    for row, kind, name, source, replaces in (
+            (attn, "fwd", "entity_attn_fwd", "entity_attn.cu", "pallas_attn.py:87"),
+            (attn, "bwd", "entity_attn_bwd", "entity_attn.cu", "pallas_attn.py:224"),
+            (gru, "fwd", "gru_fwd", "gru.cu", "pallas_gru.py:113"),
+            (gru, "bwd", "gru_bwd", "gru.cu", "pallas_gru.py:136")):
         out.append({
-            "name": name, "route": "cuda", "source": "refil_torch/csrc/entity_attn.cu",
-            "replaces": f"refil_tpu/ops/pallas_attn.py:{line}", "launches": launches[name],
-            "max_abs_err": err, "ms": row["ms"][kind], "plain_ms": row["ms"][f"{kind}_plain"],
-            "bound_ms": row[f"{kind}_bound_ms"], "bound_by": row[f"{kind}_bound_by"],
-            "library_ms": row["ms"][f"{kind}_library"],
+            "name": name, "route": "cuda", "source": f"refil_torch/csrc/{source}",
+            "replaces": f"refil_tpu/ops/{replaces}",
+            "launches": launches_by_path["combat"][name],
+            "launches_group_matching": launches_by_path["group_matching"][name],
+            "max_abs_err": row[f"{kind}_max_abs_err"], "ms": row["ms"][kind],
+            "plain_ms": row["ms"][f"{kind}_plain"], "bound_ms": row[f"{kind}_bound_ms"],
+            "bound_by": row[f"{kind}_bound_by"], "library_ms": row["ms"][f"{kind}_library"],
         })
     return {"kernels": out}
 
@@ -334,7 +529,8 @@ def main(argv) -> None:
     rows = phase_kernels()
     if kernels_only:
         return
-    launches = phase_slice(name_power)
+    launches = {"group_matching": phase_group_matching(name_power),
+                "combat": phase_combat(name_power)}
     print(name_power, flush=True)
     print(json.dumps(kernels_line(rows, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

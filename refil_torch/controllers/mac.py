@@ -34,8 +34,8 @@ class EntityMAC:
         self.is_imagine = "imagine" in args.agent
         if args.agent not in AGENT_REGISTRY:
             raise NotImplementedError(
-                f"agent {args.agent!r} is not ported yet (ROADMAP queue A, slice 2); "
-                f"ported: {sorted(AGENT_REGISTRY)}")
+                f"agent {args.agent!r} is not ported yet (ROADMAP queue A item 10, the flat "
+                f"path); ported: {sorted(AGENT_REGISTRY)}")
         self.agent = AGENT_REGISTRY[args.agent](
             input_shape=self.input_shape,
             attn_embed_dim=args.attn_embed_dim,
@@ -47,6 +47,7 @@ class EntityMAC:
             gt_obs_mask=bool(getattr(args, "gt_obs_mask", False)),
             dtype=compute_dtype(args),
             use_kernel=bool(getattr(args, "use_pallas_attention", True)),
+            use_gru_kernel=bool(getattr(args, "use_pallas_gru", True)),
             generator=generator,
         ).to(self.device)
 

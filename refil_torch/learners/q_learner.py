@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..controllers.mac import compute_dtype
-from ..modules.mixers import MIXER_REGISTRY, LinearFlexQMixer, VDNMixer
+from ..modules.mixers import MIXER_REGISTRY, FlexQMixer, LinearFlexQMixer, VDNMixer
 
 NEG = -9999999.0  # Q of an unavailable action in the double-Q argmax
 
@@ -48,8 +48,11 @@ class QLearner:
         mixer_name = getattr(args, "mixer", None)
         if mixer_name == "vdn":
             self.mixer = VDNMixer()
-        elif mixer_name == "lin_flex_qmix":
-            self.mixer = LinearFlexQMixer(
+        elif mixer_name in ("flex_qmix", "lin_flex_qmix"):
+            cls = FlexQMixer if mixer_name == "flex_qmix" else LinearFlexQMixer
+            # the mixer's entities include the last-action block, as the
+            # agent's inputs do
+            self.mixer = cls(
                 n_agents=self.n_agents,
                 input_dim=mac.input_shape,
                 mixing_embed_dim=args.mixing_embed_dim,
@@ -61,9 +64,12 @@ class QLearner:
                 use_kernel=bool(getattr(args, "use_pallas_attention", True)),
                 generator=init_generator,
             ).to(self.device)
+        elif mixer_name == "qmix":
+            raise NotImplementedError("mixer 'qmix' (QMixer over the flat state) is not ported "
+                                      "yet: ROADMAP queue A item 10, the flat path")
         elif mixer_name is not None:
-            raise NotImplementedError(f"mixer {mixer_name!r} is not ported yet (ROADMAP queue "
-                                      f"A); ported: {sorted(MIXER_REGISTRY)}")
+            raise ValueError(f"mixer {mixer_name!r} not recognised; ported: "
+                             f"{sorted(MIXER_REGISTRY)}")
 
         self.params = list(mac.parameters())
         if self.mixer is not None:

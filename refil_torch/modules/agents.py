@@ -1,11 +1,14 @@
 """Agent Q-networks over entity sets, port of ``refil_tpu/modules/agents.py``.
 
 Ported: ``EntityAttentionFFAgent`` and ``ImagineEntityAttentionFFAgent`` (the
-Group Matching agents). The RNN and flat agents wait for their GRU kernel.
+Group Matching agents), ``EntityAttentionRNNAgent`` and
+``ImagineEntityAttentionRNNAgent`` (the combat agents). The flat agents
+(``RNNAgent``, ``FFAgent``) belong to the flat path, not ported yet.
 
-The whole (B, T) grid is flattened into one batched attention call, and
-REFIL's ×3 [full, within-group, across-group] pass tiles the batch axis.
-All masks are boolean blocking masks (True = blocked / inactive).
+The whole (B, T) grid is flattened into one batched attention call, the GRU
+runs over the whole sequence at once (``GRUSequence``), and REFIL's ×3 [full,
+within-group, across-group] pass tiles the batch axis. All masks are boolean
+blocking masks (True = blocked / inactive).
 """
 from __future__ import annotations
 
@@ -15,12 +18,13 @@ import torch
 from torch import nn
 
 from ..ops.masks import build_imagine_masks
-from .layers import TorchLinear, make_entity_layer
+from .layers import GRUSequence, TorchLinear, make_entity_layer
 
 
 class EntityAttentionFFAgent(nn.Module):
     """fc1 -> ReLU -> entity-attention -> ReLU -> fc2 -> Q. ``hidden`` passes
-    through untouched (API uniformity with the RNN agents)."""
+    through untouched (API uniformity with the RNN agents); ``use_gru_kernel``
+    is accepted for the same reason and ignored."""
 
     agent_rows = True  # imagine masks are agent-rows (Na, Ne) for FF agents
 
@@ -28,7 +32,7 @@ class EntityAttentionFFAgent(nn.Module):
                  n_actions: int, n_agents: int, attn_n_heads: int,
                  pooling_type: Optional[str] = None, gt_obs_mask: bool = False,
                  dtype: Optional[torch.dtype] = None, use_kernel: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 use_gru_kernel: bool = True, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_agents = n_agents
         self.n_actions = n_actions
@@ -67,6 +71,65 @@ class EntityAttentionFFAgent(nn.Module):
                 gt_mask=None, **unused):
         if self.gt_obs_mask and gt_mask is not None:
             obs_mask = gt_mask  # ground truth substitutes for observability
+        return self._base_forward(entities, obs_mask, entity_mask, hidden, ret_attn_logits)
+
+
+class EntityAttentionRNNAgent(nn.Module):
+    """fc1 -> ReLU -> entity-attention -> fc2 -> ReLU -> GRU over T -> fc3 -> Q.
+    ``use_gru_kernel`` is the config's ``use_pallas_gru``."""
+
+    agent_rows = False  # imagine masks are square (Ne, Ne) for RNN agents
+
+    def __init__(self, input_shape: int, attn_embed_dim: int, rnn_hidden_dim: int,
+                 n_actions: int, n_agents: int, attn_n_heads: int,
+                 pooling_type: Optional[str] = None, gt_obs_mask: bool = False,
+                 dtype: Optional[torch.dtype] = None, use_kernel: bool = True,
+                 use_gru_kernel: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_agents = n_agents
+        self.n_actions = n_actions
+        self.rnn_hidden_dim = rnn_hidden_dim
+        self.dtype = dtype
+        self.fc1 = TorchLinear(input_shape, attn_embed_dim, generator=generator)
+        self.attn = make_entity_layer(attn_embed_dim, attn_embed_dim, attn_embed_dim,
+                                      attn_n_heads, pooling_type, dtype=dtype,
+                                      use_kernel=use_kernel, generator=generator)
+        self.fc2 = TorchLinear(attn_embed_dim, rnn_hidden_dim, generator=generator)
+        self.gru = GRUSequence(rnn_hidden_dim, rnn_hidden_dim, use_kernel=use_gru_kernel,
+                               generator=generator)
+        self.fc3 = TorchLinear(rnn_hidden_dim, n_actions, generator=generator)
+
+    def _base_forward(self, entities, obs_mask, entity_mask, hidden, ret_attn_logits=None):
+        B, T, Ne, D = entities.shape
+        Na, H = self.n_agents, self.rnn_hidden_dim
+        if self.dtype is not None:
+            entities = entities.to(self.dtype)
+        x = entities.reshape(B * T, Ne, D)
+        pre_mask = obs_mask.reshape(B * T, obs_mask.shape[2], Ne)
+        agent_mask = entity_mask.reshape(B * T, Ne)[:, :Na]
+
+        x1 = torch.relu(self.fc1(x))
+        attn_outs = self.attn(x1, pre_mask=pre_mask, post_mask=agent_mask,
+                              ret_attn_logits=ret_attn_logits)
+        if ret_attn_logits is not None:
+            x2, attn_logits = attn_outs
+        else:
+            x2 = attn_outs
+        x3 = torch.relu(self.fc2(x2))
+        # (B*T, Na, H) -> (B*Na, T, H) for the sequence
+        x3 = x3.reshape(B, T, Na, H).transpose(1, 2).reshape(B * Na, T, H)
+        h_last, hs = self.gru(x3, hidden.reshape(B * Na, H))
+        hs = hs.reshape(B, Na, T, H).transpose(1, 2)
+        q = self.fc3(hs)  # (B, T, Na, A)
+        # zero Q of inactive agents
+        q = q.masked_fill(agent_mask.reshape(B, T, Na, 1), 0.0).float()
+        h_out = h_last.reshape(B, Na, H)
+        if ret_attn_logits is not None:
+            return q, h_out, attn_logits.reshape(B, T, Na, Ne)
+        return q, h_out
+
+    def forward(self, entities, obs_mask, entity_mask, hidden, ret_attn_logits=None,
+                **unused):
         return self._base_forward(entities, obs_mask, entity_mask, hidden, ret_attn_logits)
 
 
@@ -109,7 +172,24 @@ class ImagineEntityAttentionFFAgent(EntityAttentionFFAgent):
                                 use_rand_gt_factors=use_rand_gt_factors)
 
 
+class ImagineEntityAttentionRNNAgent(EntityAttentionRNNAgent):
+    """REFIL's combat agent: random entity bipartition, ×3 tiled forward."""
+
+    def forward(self, entities, obs_mask, entity_mask, hidden, imagine=False,
+                generator=None, imagine_draws=None, gt_mask=None, use_gt_factors=False,
+                use_rand_gt_factors=False, ret_attn_logits=None):
+        if not imagine:
+            return self._base_forward(entities, obs_mask, entity_mask, hidden,
+                                      ret_attn_logits)
+        return _imagine_forward(self, entities, obs_mask, entity_mask, hidden,
+                                generator=generator, imagine_draws=imagine_draws,
+                                gt_mask=gt_mask, use_gt_factors=use_gt_factors,
+                                use_rand_gt_factors=use_rand_gt_factors)
+
+
 AGENT_REGISTRY = {
     "entity_attend_ff": EntityAttentionFFAgent,
     "imagine_entity_attend_ff": ImagineEntityAttentionFFAgent,
+    "entity_attend_rnn": EntityAttentionRNNAgent,
+    "imagine_entity_attend_rnn": ImagineEntityAttentionRNNAgent,
 }

@@ -18,13 +18,16 @@ from torch import nn
 
 from ..ops.attention import entity_attention, entity_pooling
 from ..ops.entity_attn import entity_attention as kernel_entity_attention
+from ..ops.gru import gru_sequence
+from ..ops.gru_kernel import gru_sequence as kernel_gru_sequence
 
 _log = logging.getLogger("refil_torch")
-_logged_plain_choice = False
+_logged_plain_choice = set()
 
 
-def _uniform(shape, fan_in: int, generator: Optional[torch.Generator]) -> nn.Parameter:
-    bound = 1.0 / math.sqrt(fan_in)
+def _uniform(shape, fan_in: int, generator: Optional[torch.Generator],
+             bound: Optional[float] = None) -> nn.Parameter:
+    bound = 1.0 / math.sqrt(fan_in) if bound is None else bound
     t = torch.empty(shape).uniform_(-bound, bound, generator=generator)
     return nn.Parameter(t)
 
@@ -44,12 +47,11 @@ class TorchLinear(nn.Module):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
-def _log_plain_choice() -> None:
-    global _logged_plain_choice
-    if not _logged_plain_choice:
-        _logged_plain_choice = True
-        _log.info("use_pallas_attention=False: entity attention runs its plain "
-                  "PyTorch version instead of the CUDA kernel")
+def _log_plain_choice(key: str, what: str) -> None:
+    if key not in _logged_plain_choice:
+        _logged_plain_choice.add(key)
+        _log.info("%s=False: %s runs its plain PyTorch version instead of the CUDA kernel",
+                  key, what)
 
 
 class EntityAttentionLayer(nn.Module):
@@ -81,7 +83,7 @@ class EntityAttentionLayer(nn.Module):
         if ret_attn_logits is None and self.use_kernel:
             return kernel_entity_attention(*args)
         if not self.use_kernel:
-            _log_plain_choice()
+            _log_plain_choice("use_pallas_attention", "entity attention")
         return entity_attention(*args, ret_attn_logits=ret_attn_logits)
 
 
@@ -107,6 +109,57 @@ class EntityPoolingLayer(nn.Module):
         if ret_attn_logits is not None:
             return out, None
         return out
+
+
+class _ProjParams(nn.Module):
+    """One GRU projection's parameters, named and shaped as the flax
+    ``GRUCell`` Dense children: ``kernel`` (fan_in, H), ``bias`` (H,) or none.
+    Every one is initialised U(-1/sqrt(H), 1/sqrt(H)), the GRUCell bound."""
+
+    def __init__(self, fan_in: int, features: int, use_bias: bool, bound: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = _uniform((fan_in, features), fan_in, generator, bound)
+        self.bias = _uniform((features,), fan_in, generator, bound) if use_bias else None
+
+
+class GRUSequence(nn.Module):
+    """GRU over a sequence with the input projection hoisted out of the
+    recurrence. Children ``ir``, ``iz``, ``in`` (with bias), ``hr``, ``hz``
+    (without) and ``hn`` (with), as the flax tree names them.
+
+    ``xs`` (R, T, D), ``h0`` (R, H) -> ``(h_last, hs)``, hs (R, T, H). The
+    input projection ``xs @ W_i + b_i`` is one plain matmul in ``xs``'s dtype
+    (the JAX package leaves it to XLA outside its kernel); the recurrence, in
+    float32, is ``ops.gru_kernel.gru_sequence`` (the CUDA kernels on a CUDA
+    tensor, the plain version on a CPU tensor) or, with ``use_kernel=False``
+    (the config's ``use_pallas_gru``), the plain version everywhere."""
+
+    def __init__(self, in_features: int, features: int, use_kernel: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features = features
+        self.use_kernel = use_kernel
+        bound = 1.0 / math.sqrt(features)
+        for name in ("ir", "iz", "in", "hr", "hz", "hn"):
+            fan_in = in_features if name.startswith("i") else features
+            self.add_module(name, _ProjParams(fan_in, features, name not in ("hr", "hz"),
+                                              bound, generator))
+
+    def forward(self, xs: torch.Tensor, h0: torch.Tensor):
+        p = self._modules
+        wi = torch.cat([p["ir"].kernel, p["iz"].kernel, p["in"].kernel], -1)  # (D, 3H)
+        bi = torch.cat([p["ir"].bias, p["iz"].bias, p["in"].bias], -1)
+        wh = torch.cat([p["hr"].kernel, p["hz"].kernel, p["hn"].kernel], -1)  # (H, 3H)
+        xw = torch.matmul(xs, wi.to(xs.dtype)) + bi.to(xs.dtype)  # (R, T, 3H)
+        args = (xw.transpose(0, 1).contiguous(), wh.float(), p["hn"].bias.float(), h0)
+        if self.use_kernel:
+            hs = kernel_gru_sequence(*args)
+        else:
+            _log_plain_choice("use_pallas_gru", "the GRU recurrence")
+            hs = gru_sequence(*args)
+        hs = hs.transpose(0, 1)  # (R, T, H)
+        return hs[:, -1], hs
 
 
 def make_entity_layer(in_dim: int, embed_dim: int, out_dim: int, n_heads: int,

@@ -1,8 +1,8 @@
 """Mixing networks, port of ``refil_tpu/modules/mixers.py``.
 
-Ported: ``AttentionHyperNet`` (all four modes), ``LinearFlexQMixer`` (the
-Group Matching mixer) and ``VDNMixer``. ``FlexQMixer`` and ``QMixer`` wait
-for slice 2.
+Ported: ``AttentionHyperNet`` (all four modes), ``FlexQMixer`` (the combat
+mixer), ``LinearFlexQMixer`` (the Group Matching mixer) and ``VDNMixer``.
+``QMixer`` belongs to the flat path, not ported yet.
 
 Shapes: ``entities`` (B, T, Ne, D); ``entity_mask`` (B, T, Ne) bool;
 ``agent_qs`` (B, T, Na), or (B, T, 2·Na) on the imagined path. Mixers return
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masks import hypernet_attn_mask
@@ -51,6 +52,62 @@ class AttentionHyperNet(nn.Module):
         if self.mode == "scalar":
             return x3.mean(dim=(1, 2))
         return x3
+
+
+class FlexQMixer(nn.Module):
+    """QMIX monotonic mixing with attention hypernets. On the imagined path
+    the first-layer hypernet runs twice, with the within-group and the
+    interaction masks, and the 2·Na imagined Qs mix against the same
+    targets."""
+
+    def __init__(self, n_agents: int, input_dim: int, mixing_embed_dim: int,
+                 hypernet_embed: int, attn_n_heads: int, softmax_mixing_weights: bool = False,
+                 mixer_non_lin: str = "elu", pooling_type: Optional[str] = None,
+                 dtype: Optional[torch.dtype] = None, use_kernel: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_agents = n_agents
+        self.mixing_embed_dim = mixing_embed_dim
+        self.softmax_mixing_weights = softmax_mixing_weights
+        self.mixer_non_lin = mixer_non_lin
+        self.dtype = dtype
+        kw = dict(input_dim=input_dim, hypernet_embed=hypernet_embed,
+                  mixing_embed_dim=mixing_embed_dim, n_agents=n_agents,
+                  attn_n_heads=attn_n_heads, pooling_type=pooling_type, dtype=dtype,
+                  use_kernel=use_kernel, generator=generator)
+        self.hyper_w_1 = AttentionHyperNet(mode="matrix", **kw)
+        self.hyper_w_final = AttentionHyperNet(mode="vector", **kw)
+        self.hyper_b_1 = AttentionHyperNet(mode="vector", **kw)
+        self.V = AttentionHyperNet(mode="scalar", **kw)
+
+    def _weights(self, w: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(w, dim=-1) if self.softmax_mixing_weights else w.abs()
+
+    def forward(self, agent_qs, entities, entity_mask, imagine_groups=None):
+        B, T, Ne, D = entities.shape
+        if self.dtype is not None:
+            entities = entities.to(self.dtype)
+            agent_qs = agent_qs.to(self.dtype)
+        ents = entities.reshape(B * T, Ne, D)
+        em = entity_mask.reshape(B * T, Ne)
+        E = self.mixing_embed_dim
+
+        if imagine_groups is not None:
+            w_mask, i_mask = imagine_groups
+            qs = agent_qs.reshape(B * T, 1, self.n_agents * 2)
+            w1_W = self.hyper_w_1(ents, em, attn_mask=w_mask.reshape(B * T, -1, Ne))
+            w1_I = self.hyper_w_1(ents, em, attn_mask=i_mask.reshape(B * T, -1, Ne))
+            w1 = torch.cat([w1_W, w1_I], dim=1)  # (B', 2Na, E)
+        else:
+            qs = agent_qs.reshape(B * T, 1, self.n_agents)
+            w1 = self.hyper_w_1(ents, em)  # (B', Na, E)
+        b1 = self.hyper_b_1(ents, em).reshape(B * T, 1, E)
+        non_lin = F.elu if self.mixer_non_lin == "elu" else torch.tanh
+        hidden = non_lin(torch.bmm(qs, self._weights(w1)) + b1)  # (B', 1, E)
+        w_final = self._weights(self.hyper_w_final(ents, em))  # (B', E)
+        v = self.V(ents, em).reshape(B * T, 1, 1)
+        y = torch.bmm(hidden, w_final[..., None]) + v
+        return y.reshape(B, T, 1).float()
 
 
 class LinearFlexQMixer(nn.Module):
@@ -111,5 +168,6 @@ class VDNMixer(nn.Module):
 
 MIXER_REGISTRY = {
     "vdn": VDNMixer,
+    "flex_qmix": FlexQMixer,
     "lin_flex_qmix": LinearFlexQMixer,
 }

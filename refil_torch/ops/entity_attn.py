@@ -14,13 +14,15 @@ Weights keep the JAX layout at this interface: ``in_kernel`` (D, 3E),
 ``out_kernel`` (E, O), ``out_bias`` (O,).
 
 ``launches`` counts the kernel launches of each wrapper, so a run can show its
-main path went through the kernels. One backward launch is the backward
-kernel plus the small kernel that sums its per-block weight gradients.
+main path went through the kernels. One backward launch is the per-sample
+backward kernel plus the two small kernels that form the weight gradients
+from what it wrote (tiled products over row chunks, then the chunks summed in
+order).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,11 +47,11 @@ def _lib():
         lib = ctypes.CDLL(library("entity_attn"))
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.entity_attn_plan.argtypes = [i] * 9 + [ip, ip, ip]
+        lib.entity_attn_plan.argtypes = [i] * 10 + [ip] * 5
         lib.entity_attn_plan.restype = i
-        lib.entity_attn_fwd.argtypes = [i] + [p] * 7 + [i] * 11 + [p]
+        lib.entity_attn_fwd.argtypes = [i] + [p] * 7 + [i] * 12 + [p]
         lib.entity_attn_fwd.restype = i
-        lib.entity_attn_bwd.argtypes = [i] + [p] * 9 + [i] * 11 + [p]
+        lib.entity_attn_bwd.argtypes = [i] + [p] * 12 + [i] * 13 + [p]
         lib.entity_attn_bwd.restype = i
         lib.entity_attn_error_string.argtypes = [i]
         lib.entity_attn_error_string.restype = ctypes.c_char_p
@@ -92,18 +94,25 @@ def _validate(entities, in_kernel, out_kernel, pre_mask, post_mask, n_heads):
     return Bp, Ne, Nq, D, E, O
 
 
-def launch_plan(bwd: bool, dims, device_index: int):
-    """(samples per block iteration, grid, dynamic shared memory in bytes) of
-    a launch at ``dims`` = (Bp, Ne, Nq, D, E, O, heads); raises where the
-    widths do not fit one block's shared memory."""
+class Plan(NamedTuple):
+    spb: int  # samples per block iteration
+    ks: int  # weight rows per shared-memory slice; >= max(D, E): resident
+    grid: int  # persistent blocks
+    smem: int  # dynamic shared memory in bytes
+    chunks: int  # row chunks of the backward's weight-gradient products
+
+
+def launch_plan(bwd: bool, dtype: torch.dtype, dims, device_index: int) -> Plan:
+    """The launch of a call at ``dims`` = (Bp, Ne, Nq, D, E, O, heads);
+    raises where not even one sample fits one block's shared memory."""
     lib = _lib()
     Bp, Ne, Nq, D, E, O, H = dims
-    spb, grid, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.entity_attn_plan(int(bwd), Bp, Ne, Nq, D, E, O, H, device_index,
-                               ctypes.byref(spb), ctypes.byref(grid), ctypes.byref(smem))
+    out = [ctypes.c_int() for _ in Plan._fields]
+    err = lib.entity_attn_plan(int(bwd), _DTYPES[dtype], Bp, Ne, Nq, D, E, O, H, device_index,
+                               *(ctypes.byref(v) for v in out))
     _check(lib, err, f"entity attention plan (Ne={Ne} D={D} E={E} O={O}: too wide "
                      "for one block's shared memory?)")
-    return spb.value, grid.value, smem.value
+    return Plan(*(v.value for v in out))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -127,13 +136,13 @@ def kernel_forward(entities, in_kernel, out_kernel, out_bias, pre_mask, post_mas
     ents, wi, wo, bo = (t.contiguous() for t in (entities, in_kernel, out_kernel, out_bias))
     pm = None if pre_mask is None else pre_mask.contiguous()
     qm = post_mask.contiguous()
-    spb, grid, smem = launch_plan(False, (Bp, Ne, Nq, D, E, O, n_heads),
-                                 entities.device.index)
+    plan = launch_plan(False, entities.dtype, (Bp, Ne, Nq, D, E, O, n_heads),
+                       entities.device.index)
     stream = torch.cuda.current_stream(entities.device).cuda_stream
     err = lib.entity_attn_fwd(
         _DTYPES[entities.dtype], _ptr(ents), _ptr(wi), _ptr(wo), _ptr(bo), _ptr(pm), _ptr(qm),
-        _ptr(out), Bp, Ne, Nq, D, E, O, n_heads, 0 if pm is None else pm.shape[1], spb,
-        grid, smem, stream)
+        _ptr(out), Bp, Ne, Nq, D, E, O, n_heads, 0 if pm is None else pm.shape[1], plan.spb,
+        plan.ks, plan.grid, plan.smem, stream)
     _check(lib, err, "entity_attn_fwd launch")
     launches["entity_attn_fwd"] += 1
     return out
@@ -158,13 +167,18 @@ def kernel_backward(entities, in_kernel, out_kernel, pre_mask, post_mask, g,
         gg = g.to(entities.dtype).contiguous()
         pm = None if pre_mask is None else pre_mask.contiguous()
         qm = post_mask.contiguous()
-        spb, grid, smem = launch_plan(True, (Bp, Ne, Nq, D, E, O, n_heads), dev.index)
-        partials = torch.empty((grid, n_w + n_wo + O), dtype=torch.float32, device=dev)
+        plan = launch_plan(True, entities.dtype, (Bp, Ne, Nq, D, E, O, n_heads), dev.index)
+        f32 = dict(dtype=torch.float32, device=dev)
+        dqkv = torch.empty((Bp * Ne * 3 * E,), **f32)
+        attn = torch.empty((Bp * Nq * E,), **f32)
+        gm = torch.empty((Bp * Nq * O,), **f32)
+        partials = torch.empty((plan.chunks, n_w + n_wo + O), **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.entity_attn_bwd(
             _DTYPES[entities.dtype], _ptr(ents), _ptr(gg), _ptr(wi), _ptr(wo), _ptr(pm),
-            _ptr(qm), _ptr(dents), _ptr(partials), _ptr(dweights), Bp, Ne, Nq, D, E, O,
-            n_heads, 0 if pm is None else pm.shape[1], spb, grid, smem, stream)
+            _ptr(qm), _ptr(dents), _ptr(dqkv), _ptr(attn), _ptr(gm), _ptr(partials),
+            _ptr(dweights), Bp, Ne, Nq, D, E, O, n_heads, 0 if pm is None else pm.shape[1],
+            plan.spb, plan.ks, plan.grid, plan.smem, plan.chunks, stream)
         _check(lib, err, "entity_attn_bwd launch")
         launches["entity_attn_bwd"] += 1
     dwqkv = dweights[:n_w].view(D, 3 * E)

@@ -1,0 +1,150 @@
+"""The GRU recurrence CUDA kernels and their autograd wrapper.
+
+``gru_sequence`` is the port's counterpart of
+``refil_tpu/ops/pallas_gru.py:gru_sequence``. It dispatches on the device of
+the tensors it is given:
+
+  * CUDA tensors go through ``GRUFn``: the forward kernel (``gru_fwd`` in
+    ``csrc/gru.cu``, replacing the Pallas ``_fwd_kernel``) and, on backward,
+    the backward kernel (``gru_bwd``, replacing ``_bwd_kernel``), at every T,
+    the T = 1 rollout step included. The JAX dispatch sends T = 1 to its
+    scan (``pallas_gru.py:326``); on the card one launch is cheaper than the
+    chain of small ops a step takes, and one rule leaves no path around the
+    kernel. A launch that fails raises; nothing falls back.
+  * CPU tensors go to the plain PyTorch version ``ops.gru.gru_sequence``.
+
+``launches`` counts the kernel launches of each wrapper. One backward launch
+is the backward kernel plus the small kernel that sums its per-block dW_h and
+db_hn in block order.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .gru import gru_sequence as plain_gru_sequence
+
+launches = {"gru_fwd": 0, "gru_bwd": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from ._build import library
+
+        lib = ctypes.CDLL(library("gru"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gru_rows_per_block.restype = i
+        lib.gru_max_hidden.restype = i
+        lib.gru_fwd.argtypes = [i] + [p] * 5 + [i] * 3 + [p]
+        lib.gru_fwd.restype = i
+        lib.gru_bwd.argtypes = [i] + [p] * 10 + [i] * 3 + [p]
+        lib.gru_bwd.restype = i
+        lib.gru_error_string.argtypes = [i]
+        lib.gru_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({lib.gru_error_string(err).decode()})")
+
+
+def _validate(xw, wh, bhn, h0):
+    if xw.dtype not in _DTYPES:
+        raise TypeError(f"GRU kernel takes float32 or bfloat16 xw, not {xw.dtype}")
+    if xw.device.type != "cuda":
+        raise ValueError("the GRU kernel takes CUDA tensors")
+    T, R, H3 = xw.shape
+    H = h0.shape[-1]
+    if H3 != 3 * H or wh.shape != (H, 3 * H) or bhn.shape != (H,) or h0.shape != (R, H):
+        raise ValueError("GRU: shapes must be xw (T, R, 3H), wh (H, 3H), bhn (H,), h0 (R, H)")
+    for t in (wh, bhn, h0):
+        if t.device != xw.device:
+            raise ValueError("GRU: all tensors must be on one device")
+    if wh.dtype != torch.float32 or bhn.dtype != torch.float32:
+        raise TypeError("GRU: wh and bhn must be float32 (the recurrence is float32)")
+    if H > _lib().gru_max_hidden():
+        raise ValueError(f"GRU kernel takes H <= {_lib().gru_max_hidden()}, not {H}")
+    return T, R, H
+
+
+def kernel_forward(xw, wh, bhn, h0) -> torch.Tensor:
+    """Launches the forward kernel; returns hs (T, R, H) in ``xw``'s dtype.
+    ``h0`` is read as float32."""
+    T, R, H = _validate(xw, wh, bhn, h0)
+    hs = torch.empty((T, R, H), dtype=xw.dtype, device=xw.device)
+    if T * R == 0:
+        return hs
+    lib = _lib()
+    x, w, b, h = xw.contiguous(), wh.contiguous(), bhn.contiguous(), h0.float().contiguous()
+    err = lib.gru_fwd(_DTYPES[xw.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(),
+                      hs.data_ptr(), T, R, H, torch.cuda.current_stream(xw.device).cuda_stream)
+    _check(lib, err, "gru_fwd launch")
+    launches["gru_fwd"] += 1
+    return hs
+
+
+def kernel_backward(xw, hs, h0, wh, bhn, g):
+    """Launches the backward kernel; returns f32 (dxw, dwh, dbhn, dh0)."""
+    T, R, H = _validate(xw, wh, bhn, h0)
+    dev = xw.device
+    if hs.shape != (T, R, H) or g.shape != (T, R, H):
+        raise ValueError("GRU backward: hs and g must be (T, R, H)")
+    f32 = dict(dtype=torch.float32, device=dev)
+    dxw = torch.empty((T, R, 3 * H), **f32)
+    dh0 = torch.zeros((R, H), **f32)
+    dweights = torch.zeros((H * 3 * H + H,), **f32)
+    if T * R > 0:
+        lib = _lib()
+        rows = lib.gru_rows_per_block()
+        partials = torch.empty(((R + rows - 1) // rows, H * 3 * H + H), **f32)
+        x, s = xw.contiguous(), hs.to(xw.dtype).contiguous()
+        gg = g.to(xw.dtype).contiguous()
+        h, w, b = h0.float().contiguous(), wh.contiguous(), bhn.contiguous()
+        err = lib.gru_bwd(_DTYPES[xw.dtype], x.data_ptr(), s.data_ptr(), gg.data_ptr(),
+                          h.data_ptr(), w.data_ptr(), b.data_ptr(), dxw.data_ptr(),
+                          dh0.data_ptr(), partials.data_ptr(), dweights.data_ptr(), T, R, H,
+                          torch.cuda.current_stream(dev).cuda_stream)
+        _check(lib, err, "gru_bwd launch")
+        launches["gru_bwd"] += 1
+    return dxw, dweights[:H * 3 * H].view(H, 3 * H), dweights[H * 3 * H:], dh0
+
+
+class GRUFn(torch.autograd.Function):
+    """Forward kernel forward, backward kernel backward. The backward
+    recomputes the gates from the saved (xw, hs, h0); gradients are cast to
+    the inputs' dtypes, as the JAX package's ``_vjp_bwd`` does
+    (``pallas_gru.py:307-315``)."""
+
+    @staticmethod
+    def forward(ctx, xw, wh, bhn, h0):
+        hs = kernel_forward(xw, wh, bhn, h0)
+        ctx.save_for_backward(xw, hs, h0, wh, bhn)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        xw, hs, h0, wh, bhn = ctx.saved_tensors
+        dxw, dwh, dbhn, dh0 = kernel_backward(xw, hs, h0, wh, bhn, g)
+        return dxw.to(xw.dtype), dwh.to(wh.dtype), dbhn.to(bhn.dtype), dh0.to(h0.dtype)
+
+
+def gru_sequence(xw, wh, bhn, h0) -> torch.Tensor:
+    """GRU over a sequence (see ``ops.gru.gru_sequence``): the CUDA kernels
+    on CUDA tensors, the plain PyTorch version on CPU tensors."""
+    if xw.device.type == "cpu":
+        return plain_gru_sequence(xw, wh, bhn, h0)
+    if xw.device.type != "cuda":
+        raise ValueError(f"the GRU has no kernel for device {xw.device}")
+    return GRUFn.apply(xw, wh, bhn, h0)

@@ -9,7 +9,9 @@ submodule as the port's modules name their attributes (``fc1``, ``attn``,
   * a flax ``TorchLinear`` kernel is (fan_in, fan_out); the port's
     ``TorchLinear.weight`` is (out, in), as in ``nn.Linear``: transposed;
   * the attention and pooling layers keep the JAX layout (``in_trans``
-    (D, 3E), ``out_kernel`` (E, O), ``out_bias`` (O,)): copied as they are.
+    (D, 3E), ``out_kernel`` (E, O), ``out_bias`` (O,)): copied as they are;
+  * so do the GRU's six projection children (``gru.ir`` ... ``gru.hn``:
+    ``kernel`` (fan_in, H), ``bias`` (H,) where the flax cell has one).
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ from .config import args_sanity_check, config_to_args
 from .controllers.mac import MAC_REGISTRY
 from .core.buffer import ReplayBuffer
 from .envs import ENV_REGISTRY
+from .envs.combat.scenarios import SCENARIO_REGISTRY
 from .learners.q_learner import QLearner
 from .runners.vector_runner import VectorRunner
 from .utils.logging import Logger, get_logger
@@ -42,6 +43,7 @@ _UNPORTED = {
     "use_tensorboard": "TensorBoard logging (ROADMAP queue A item 9)",
     "mesh_shape": "the device mesh (ROADMAP queue A item 11)",
     "distributed": "multi-process runs (ROADMAP queue A item 11)",
+    "heuristic_ai": "the scripted ally policy (heuristic_actions, ROADMAP queue A item 7)",
 }
 
 
@@ -61,9 +63,33 @@ def refuse_unported(args) -> None:
         if getattr(args, key, None):
             raise NotImplementedError(f"{key}={getattr(args, key)!r}: {what} is not ported "
                                       "to refil_torch yet")
+    # the reference ships the scripted-ally knobs under env_args as well
+    for key in ("heuristic_ai", "heuristic_rest"):
+        if args.env_args.get(key):
+            raise NotImplementedError(f"env_args.{key}=True: the scripted ally policy "
+                                      "(heuristic_actions, ROADMAP queue A item 7) is not "
+                                      "ported to refil_torch yet")
     if args.env not in ENV_REGISTRY:
-        raise NotImplementedError(f"env {args.env!r} is not ported yet (ROADMAP queue A "
-                                  f"items 7 and 10); ported: {sorted(ENV_REGISTRY)}")
+        item = _UNPORTED_ENVS.get(args.env, "ROADMAP queue A")
+        raise NotImplementedError(f"env {args.env!r} is not ported yet ({item}); ported: "
+                                  f"{sorted(ENV_REGISTRY)}")
+
+
+# envs the JAX package has and the port does not yet -> the ROADMAP item
+_UNPORTED_ENVS = {
+    "flat_battle": "the flat path, ROADMAP queue A item 10",
+    "sc2custom": "the reference's name for entity_battle, ROADMAP queue A item 7; use "
+                 "env=entity_battle",
+}
+
+
+def build_env(args, device: torch.device):
+    """The env of ``args.env``; the combat env takes its scenario set from
+    the registry by ``args.scenario``, as ``refil_tpu/run.py:build_env`` does."""
+    env_args = dict(args.env_args)
+    if args.env == "entity_battle":
+        env_args["scenario_dict"] = SCENARIO_REGISTRY[args.scenario]()
+    return ENV_REGISTRY[args.env](**env_args, device=device)
 
 
 def run(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -105,12 +131,13 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
     """The classic loop (``refil_tpu/run.py:411-503``). Returns a summary:
     counts of blocks, updates and diagnostics, the last learner metrics and
     the env-steps/s of the training blocks (rollout + insert + updates, timed
-    to a device sync; test runs and logging excluded)."""
+    to a device sync; test runs and logging excluded), and the last value of
+    every logged stat."""
     log = logger.console_logger
     if bool(getattr(args, "use_fused_pipeline", False)):
         log.info("use_fused_pipeline=True: the fused block pipeline is not ported yet "
                  "(ROADMAP queue A item 8); running the classic loop")
-    env = ENV_REGISTRY[args.env](**args.env_args, device=device)
+    env = build_env(args, device)
     env_info = env.env_info()
     gens = _generators(int(getattr(args, "seed", 0)), device)
 
@@ -195,6 +222,7 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
         "train_seconds": train_seconds,
         "env_steps_per_s": train_steps / train_seconds if train_seconds else float("nan"),
         "last_metrics": last_metrics,
+        "last_logged": {k: v[-1][1] for k, v in logger.stats.items()},
         "params_max_abs_change": max(float((p.detach() - p0).abs().max())
                                      for p, p0 in zip(learner.params, initial_params)),
         "device": str(device),

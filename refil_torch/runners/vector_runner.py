@@ -61,6 +61,11 @@ class VectorRunner:
         self.test_stats: Dict[str, float] = {}
         self.train_returns: List[float] = []
         self.test_returns: List[float] = []
+        # cumulative battle stats over the run, train and test episodes
+        # (the reference env's lifetime counters)
+        self.battles_won = 0
+        self.battles_game = 0
+        self.timeouts = 0
         self.log_train_stats_t = -1000000
 
     @torch.no_grad()
@@ -81,7 +86,9 @@ class VectorRunner:
         last_oh = torch.zeros((B, self.n_agents, self.n_actions), device=dev)
         ep_ret = torch.zeros((B,), device=dev)
         ep_len = torch.zeros((B,), dtype=torch.long, device=dev)
-        solved = torch.zeros((B,), device=dev)
+        # final-info values captured at each env's termination step
+        final_info = {k: torch.zeros((B,), device=dev)
+                      for k in getattr(env, "final_info_keys", ("solved",))}
         outs = {"actions": [], "reward": [], "terminated": [], "filled": [], "obs": []}
 
         for t in range(T):
@@ -100,7 +107,9 @@ class VectorRunner:
                 actions, self.n_actions).float())
             ep_ret = ep_ret + _mask_like(alive, rew)
             ep_len = ep_len + alive.long()
-            solved = torch.where(alive & done, info["solved"].float(), solved)
+            just_done = alive & done
+            final_info = {k: torch.where(just_done, info[k].float(), v)
+                          for k, v in final_info.items()}
 
             outs["actions"].append(actions)
             outs["reward"].append(_mask_like(alive, rew))
@@ -128,7 +137,7 @@ class VectorRunner:
             filled=filled,
         )
         stats = {"ep_returns": ep_ret.cpu().numpy(), "ep_lengths": ep_len.cpu().numpy(),
-                 "final_info": {"solved": solved.cpu().numpy()}}
+                 "final_info": {k: v.cpu().numpy() for k, v in final_info.items()}}
         return batch, stats
 
     def run(self, test_mode: bool = False) -> Dict[str, torch.Tensor]:
@@ -148,8 +157,14 @@ class VectorRunner:
         block_bs = int(stats["ep_returns"].shape[0])
         cur_stats = self.test_stats if test_mode else self.train_stats
         cur_returns = self.test_returns if test_mode else self.train_returns
-        for k, v in stats["final_info"].items():
+        final_info = stats["final_info"]
+        for k, v in final_info.items():
             cur_stats[k] = float(v.sum()) + cur_stats.get(k, 0.0)
+        if "battle_won" in final_info:
+            self.battles_won += int(final_info["battle_won"].sum())
+            self.battles_game += block_bs
+            if "episode_limit" in final_info:
+                self.timeouts += int(final_info["episode_limit"].sum())
         cur_stats["n_episodes"] = block_bs + cur_stats.get("n_episodes", 0)
         cur_stats["ep_length"] = float(stats["ep_lengths"].sum()) + cur_stats.get("ep_length", 0.0)
         cur_returns.extend(stats["ep_returns"].tolist())
@@ -162,7 +177,22 @@ class VectorRunner:
         elif not test_mode and self.t_env - self.log_train_stats_t >= self.args.runner_log_interval:
             self._log(cur_returns, cur_stats, "")
             self.logger.log_stat("epsilon", self.epsilon, self.t_env)
+            if self.battles_game:
+                for k, v in self.env_stats().items():
+                    self.logger.log_stat(k, v, self.t_env)
             self.log_train_stats_t = self.t_env
+
+    def env_stats(self) -> Dict[str, float]:
+        """Cumulative battle stats under the reference env's names;
+        ``restarts`` is always 0 (an env here cannot crash mid-episode)."""
+        return {
+            "battles_won": float(self.battles_won),
+            "battles_game": float(self.battles_game),
+            "battles_draw": float(self.timeouts),
+            "win_rate": self.battles_won / max(self.battles_game, 1),
+            "timeouts": float(self.timeouts),
+            "restarts": 0.0,
+        }
 
     def _log(self, returns, stats, prefix):
         self.logger.log_stat(prefix + "return_mean", float(np.mean(returns)), self.t_env)

@@ -32,6 +32,21 @@ def test_cli_trains_on_cpu(tmp_path, alg):
     assert len(metrics) == 1 and os.path.getsize(metrics[0]) > 0
 
 
+def test_cli_trains_combat_on_cpu(tmp_path):
+    """The slice-2 command, ``refil`` on entity_battle 3-8sz_symmetric, at
+    narrow widths and a short episode limit."""
+    argv = ["--config=refil", "--env-config=entity_battle", "with", "scenario=3-8sz_symmetric",
+            *TINY, "use_cuda=False", f"local_results_path={tmp_path}"]
+    summary = tmain.main(argv)
+    assert summary["device"] == "cpu" and summary["episode_limit"] == 10
+    assert summary["updates"] >= 1 and summary["iterations"] == 2 * summary["updates"]
+    assert math.isfinite(summary["last_metrics"]["loss"])
+    assert summary["params_max_abs_change"] > 0
+    # the runner accounts the env's final-info keys and its battle stats
+    for k in ("battle_won_mean", "episode_limit_mean", "test_battle_won_mean", "win_rate"):
+        assert k in summary["last_logged"], k
+
+
 def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="use_cuda"):
@@ -41,7 +56,8 @@ def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra", ["save_model=True", "handle_preemption=True",
                                    "checkpoint_path=somewhere", "evaluate=True",
                                    "mesh_shape={'data':2}", "use_tensorboard=True",
-                                   "agent=imagine_entity_attend_rnn", "td_lambda=0.8"])
+                                   "agent=rnn", "mixer=qmix", "env=flat_battle",
+                                   "env=sc2custom", "td_lambda=0.8", "heuristic_ai=True"])
 def test_unported_features_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError):
         tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=False", extra))
@@ -86,5 +102,6 @@ def test_port_config_files_mirror_the_reference():
     from refil_torch.config import load_config as tload
     from refil_tpu.config import load_config as jload
 
-    for alg in ("refil_group_matching", "qmix_atten_group_matching"):
-        assert set(tload(alg, "group_matching")) == set(jload(alg, "group_matching"))
+    for alg, env in (("refil_group_matching", "group_matching"),
+                     ("qmix_atten_group_matching", "group_matching"), ("refil", "entity_battle")):
+        assert set(tload(alg, env)) == set(jload(alg, env))

@@ -1,0 +1,99 @@
+"""The combat slice's numerical core as a whole: refil_torch's QLearner for
+``refil`` on ``entity_battle`` against refil_tpu's, on one
+``(training_iters, batch, L, ...)`` sample of episodes that the JAX runner
+produced on 1-5m_symmetric, with the same parameters loaded into both and the
+JAX imagine draws handed to the port. The JAX learner's GRU runs on its XLA
+scan and on the Pallas kernel in interpret mode. Metrics after 4 RMSprop
+updates at rtol 1e-5, parameters at atol 1e-5, at narrow widths."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import refil_tpu.ops.pallas_gru as pg
+from refil_tpu import config as jconfig
+from refil_tpu.controllers.mac import EntityMAC as JaxMAC
+from refil_tpu.core.buffer import ReplayBuffer as JaxBuffer
+from refil_tpu.learners.q_learner import QLearner as JaxLearner
+from refil_tpu.run import _dummy_batch
+from refil_tpu.run import build_env as jax_build_env
+from refil_tpu.runners.vector_runner import VectorRunner as JaxRunner
+from refil_torch import config as tconfig
+from refil_torch import params as tparams
+from refil_torch.controllers.mac import EntityMAC
+from refil_torch.learners.q_learner import QLearner
+from refil_torch.run import build_env
+from torch_parity import assert_trees_close, batch_to_torch, flax_tree_to_numpy, unwrap
+
+NARROW = ["scenario=1-5m_symmetric", "env_args.episode_limit=12", "attn_embed_dim=16",
+          "hypernet_embed=16", "mixing_embed_dim=8", "attn_n_heads=2", "rnn_hidden_dim=16",
+          "batch_size_run=16", "batch_size=8", "training_iters=4"]
+METRICS = ("loss", "loss_td", "im_loss", "grad_norm", "td_error_abs", "q_taken_mean",
+           "target_mean")
+
+
+def _args(cfg_mod, extra=()):
+    cfg = cfg_mod.args_sanity_check(
+        cfg_mod.load_config(alg="refil", env="entity_battle", overrides=NARROW + list(extra)))
+    args = cfg_mod.config_to_args(cfg)
+    args.entity_scheme = True
+    return args
+
+
+@pytest.fixture(params=["xla", "pallas_interpret"])
+def jax_gru(request):
+    impl = pg.get_gru_impl()
+    if request.param == "pallas_interpret":
+        pg.set_gru_impl("pallas")
+        pg._INTERPRET = True
+    yield request.param
+    pg.set_gru_impl(impl)
+    pg._INTERPRET = False
+
+
+def test_combat_learner_matches_jax(jax_gru):
+    jargs = _args(jconfig)
+    jenv = jax_build_env(jargs)
+    info = jenv.env_info()
+    jmac = JaxMAC(jargs, info)
+    key = jax.random.PRNGKey(0)
+    key, k_init, k_r1, k_r2, k_train = jax.random.split(key, 5)
+    jlearner = JaxLearner(jmac, jargs, info, k_init)
+    state = jlearner.init_state(k_init, _dummy_batch(jmac, info))
+
+    runner = JaxRunner(jenv, jmac, jargs)
+    b1 = runner.run(state.params["agent"], k_r1)
+    b2 = runner.run(state.params["agent"], k_r2)
+    ring = JaxBuffer(b1, 32, seed=0)
+    ring.insert_episode_batch(b1)
+    ring.insert_episode_batch(b2)
+    samples = ring.sample_many(jargs.training_iters, jargs.batch_size)
+    assert samples["entities"].shape[:3] == (4, 8, 13)
+
+    targs = _args(tconfig, ["use_cuda=False"])
+    env = build_env(targs, torch.device("cpu"))
+    assert env.env_info() == info
+    mac = EntityMAC(targs, info, "cpu")
+    learner = QLearner(mac, targs, info, "cpu")
+    tparams.load_flax_params(mac.agent, flax_tree_to_numpy(state.params["agent"]))
+    tparams.load_flax_params(learner.mixer, flax_tree_to_numpy(state.params["mixer"]))
+    learner.update_targets()
+
+    draws = []
+    for k in jax.random.split(k_train, jargs.training_iters):
+        key_p, key_b = jax.random.split(k)  # the draws masks.py takes from the key
+        gp = jax.random.uniform(key_p, (jargs.batch_size, 1, 1))
+        ga = jax.random.bernoulli(key_b, gp, (jargs.batch_size, 1, info["n_entities"]))
+        draws.append((torch.as_tensor(np.array(gp)), torch.as_tensor(np.array(ga))))
+    state2, jmetrics = jlearner.train_iters(state, samples, k_train, 0, 0)
+    tmetrics = learner.train_iters(batch_to_torch(samples), 0, 0, imagine_draws=draws)
+
+    assert set(METRICS) == set(jmetrics) == set(tmetrics)
+    for k in METRICS:
+        np.testing.assert_allclose(float(tmetrics[k]), float(jmetrics[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    assert_trees_close(tparams.to_flax_params(mac.agent),
+                       unwrap(flax_tree_to_numpy(state2.params["agent"])), atol=1e-5)
+    assert_trees_close(tparams.to_flax_params(learner.mixer),
+                       unwrap(flax_tree_to_numpy(state2.params["mixer"])), atol=1e-5)
+    assert learner.gt_diagnostics(batch_to_torch({k: v[-1] for k, v in samples.items()})) is None
