@@ -2,10 +2,11 @@
 //
 // Replaces the two Pallas TPU kernels of refil_tpu/ops/pallas_attn.py:
 //   * entity_attn_fwd_kernel <- _kernel     (pallas_attn.py:87-131)
-//   * entity_attn_bwd_kernel <- _bwd_kernel (pallas_attn.py:224-321), plus
-//     entity_attn_dents_kernel, entity_attn_wgrad_kernel and
-//     entity_attn_reduce_kernel, which form dEnts and the weight gradients
-//     from what the backward wrote, summed in a fixed order.
+//   * the backward <- _bwd_kernel (pallas_attn.py:224-321), in stages:
+//     the register-tiled matrix product of gemm.cuh for every projection,
+//     entity_attn_bwd_sample_kernel for the attention's own VJP, and
+//     entity_attn_colsum_kernel and entity_attn_reduce_kernel, which sum
+//     db_o and the weight gradients' chunks in a fixed order.
 //
 // What it computes (per sample b of Bp, Ne entities of width D, Nq <= Ne
 // queries, H heads of width hd = E/H):
@@ -28,15 +29,16 @@
 // (~95% of its arithmetic): at the combat widths (Ne 16, Nq 8, D = E = O =
 // 128) ~1.9 MFLOP against ~12 KB, ~150 FLOP per byte; at f32 outside the
 // tensor cores (67 TFLOP/s vs 3.35 TB/s, ~20 FLOP/byte) the arithmetic
-// bounds it at every width the repository uses. The kernels project Q for
+// bounds it at every width the repository uses. The forward projects Q for
 // all Ne rows though only the first Nq are read: at Ne 16, Nq 8 a sixth of
-// the projection work is not needed (and not counted in the bound).
+// its projection work is not needed (and not counted in the bound); the
+// backward projects Q, and forms dq's products, over the Nq rows only.
 //
-// Design (a simple one that is right first; tensor cores are later work):
+// Forward design (a simple one that is right first; tensor cores are later
+// work):
 //   * Persistent grid: each block walks groups of `spb` samples. Everything
-//     of a group (entities, qkv, softmax weights, attn, and in the backward
-//     g, dattn, dl) lives in shared memory. Ne is small, so the (Nq, Ne)
-//     score tiles are plain loops.
+//     of a group (entities, qkv, softmax weights, attn) lives in shared
+//     memory. Ne is small, so the (Nq, Ne) score tiles are plain loops.
 //   * Weights: W_qkv (D x 3E) and W_o (E x O) are read in slices of `ks`
 //     rows through two rings of two slots in shared memory; slice s+1 is in
 //     flight (cp.async) while slice s is multiplied. Each slice serves every
@@ -46,26 +48,38 @@
 //     (resident). At the combat widths (128; 262 KB of f32 weights, more
 //     than the 227 KB a block may have) they stream.
 //   * A slice of W_qkv or W_o rows is a K-slice of qkv = x @ W_qkv and
-//     out = attn @ W_o and an N-slice of the transposed product
-//     dattn = g @ W_o^T (complete columns).
+//     out = attn @ W_o.
 //   * The products go through tile_gemm: each thread keeps a 4 x 2..6 tile
 //     of the result in registers, so one shared-memory load feeds 2-4 FMAs;
-//     loops that would send a warp to one bank (a stride of 3E or O) start
-//     each thread at a rotated offset. Over streamed K-slices, stream_gemm
+//     the score loop, which would send a warp to one bank (a stride of 3E),
+//     starts each thread at a rotated offset. Over streamed K-slices, stream_gemm
 //     keeps each thread's partial sums (up to 4 tiles) in registers from the
 //     first slice to the last. Resident and streamed are separate kernel
 //     instances, so the streamed one's ~200 registers do not cut the
 //     resident one's occupancy.
-//   * Backward: blocks run concurrently, so the TPU kernel's += into one
-//     weight-gradient block (pallas_attn.py:274-278) would race, and at the
-//     combat widths a block's partial would not fit in shared memory. The
-//     per-sample kernel writes dqkv (Bp, Ne, 3E), attn (Bp, Nq, E) and the
-//     post-masked g (Bp, Nq, O) in f32 to device memory. Tiled products over
-//     all rows then take the projections' gradients, each block one 64 x 64
-//     output tile: entity_attn_dents_kernel dEnts = dqkv W_qkv^T over all of
-//     3E; entity_attn_wgrad_kernel dW_qkv = ents^T dqkv, dW_o = attn^T g,
-//     db_o = sum g over one chunk of rows, and entity_attn_reduce_kernel sums
-//     the chunks in order. No atomics: the result is deterministic.
+// Backward design (launch_bwd): a per-sample kernel that recomputed qkv and
+// formed dattn re-read W_qkv and W_o for every few samples, so each weight
+// value fetched served a few dozen rows. The backward instead runs in three
+// stages, each with high operand reuse:
+//   (i)   the projections over all samples' rows at once, in gemm.cuh's
+//         128-row register-tiled product: K|V = ents W_kv (Bp*Ne rows),
+//         Q = ents[:, :Nq] W_q (Bp*Nq rows, addressed by stride) and
+//         dattn = g W_o^T, rounded in their epilogue as the TPU rounds qkv
+//         (W_qkv^T and W_o^T are written once per call by
+//         entity_attn_transpose_kernel, so every product reads B row-major);
+//   (ii)  entity_attn_bwd_sample_kernel, a warp per (sample, head) and no
+//         weights: the scores, softmax, attn, dv, the softmax VJP, dq, dk;
+//   (iii) the same product for dEnts = dK|dV W_kv^T + dq W_q^T (the second
+//         added on the query rows) and for dW_kv = ents^T dK|dV, dW_q =
+//         ents[:, :Nq]^T dq, dW_o = attn^T (g post_keep), whose tall K splits
+//         into row chunks (blocks run concurrently, so the TPU kernel's +=
+//         across its sequential grid, pallas_attn.py:274-278, would race);
+//         db_o's chunks by entity_attn_colsum_kernel, and
+//         entity_attn_reduce_kernel sums every chunk in order.
+// No atomics: two runs give the same bits. The f32 scratch (at Bp 14,496,
+// Ne 16, Nq 8, E = O = 128): K|V 237 MB, Q 59 MB, dattn 59 MB and g
+// post_keep 59 MB, stage (ii) writing dK|dV, dq and attn over the first
+// three; the chunk partials 69 MB; the transposed weights 0.26 MB.
 //
 // Interface: plain C (extern "C"), loaded with ctypes. The wrapper allocates
 // every output and scratch buffer; each launcher enqueues on the stream it is
@@ -75,12 +89,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e9f;
-constexpr int kTile = 64;     // output tile of the dEnts and weight-gradient products
-constexpr int kRowStep = 16;  // depth of those products staged in shared memory at once
 
 template <typename T>
 struct Num;
@@ -114,9 +128,8 @@ __host__ __device__ inline bool resident(const Dims& d) { return d.ks >= d.d && 
 struct Layout {
   size_t ring_q, ring_o, slot_q, slot_o;  // bytes
   size_t f0;                              // bytes where the f32 regions start
-  size_t bo, x, qkv, p, a, rowok, post, mask;  // forward
-  size_t out, da, dl;                          // backward only (out holds g)
-  size_t fwd_bytes, bwd_bytes;
+  size_t bo, x, qkv, p, a, rowok, post, mask;
+  size_t fwd_bytes;
 };
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
@@ -141,11 +154,40 @@ __host__ __device__ inline Layout make_layout(const Dims& d, size_t elem) {
   L.post = off;  off += s * d.nq;
   L.mask = off;  off += s * d.nq * d.ne;
   L.fwd_bytes = L.f0 + off * sizeof(float);
-  L.out = off;   off += s * d.nq * d.o;  // g in the backward
-  L.da = off;    off += s * d.nq * d.e;
-  L.dl = off;    off += s * d.h * d.nq * d.ne;
-  L.bwd_bytes = L.f0 + off * sizeof(float);
   return L;
+}
+
+// Shared memory of one warp of the backward's per-sample kernel, which takes
+// one (sample, head), in floats: q_h, k_h, v_h and dattn_h, their rows
+// padded (to hd + 4 floats where hd is a multiple of 4, so rows stay 16-byte
+// aligned for cp.async and eight lanes reading four floats each of eight
+// rows hit distinct banks; else hd + 1), the softmax weights, dl and the
+// pre-mask (Nq x Ne each), row_ok and post_keep.
+struct WarpLayout {
+  int hdp, q, k, v, da, w, dl, mask, rowok, post, floats;
+};
+
+__host__ __device__ inline WarpLayout make_warp_layout(const Dims& d) {
+  WarpLayout L;
+  const int hd = d.e / d.h;
+  L.hdp = hd % 4 == 0 ? hd + 4 : hd + 1;
+  int off = 0;
+  L.q = off;     off += d.nq * L.hdp;
+  L.k = off;     off += d.ne * L.hdp;
+  L.v = off;     off += d.ne * L.hdp;
+  L.da = off;    off += d.nq * L.hdp;
+  L.w = off;     off += d.nq * d.ne;
+  L.dl = off;    off += d.nq * d.ne;
+  L.mask = off;  off += d.nq * d.ne;
+  L.rowok = off; off += d.nq;
+  L.post = off;  off += d.nq;
+  L.floats = (off + 3) / 4 * 4;  // the next warp's slice 16-byte aligned
+  return L;
+}
+
+// the per-sample kernel's block: H warps for each of its spb samples
+inline size_t bwd_sample_smem(const Dims& d) {
+  return (size_t)make_warp_layout(d).floats * sizeof(float) * d.h * d.spb;
 }
 
 // n elements from global src to shared dst: 16-byte cp.async where both
@@ -198,10 +240,9 @@ __device__ void stream_rows(const T* W, int K, int N, int ks, char* ring, size_t
 // Each thread computes a TM x TN tile of C in registers, so one operand load
 // feeds several FMAs. A tile's rows and columns are interleaved
 // (m = tm + i * tiles_m, n = tn + j * tiles_n): neighbouring threads read
-// neighbouring columns of a row-major B. With ROT each thread starts k at its
-// own offset, which spreads a warp's reads of an operand read along k (a
-// transposed B) over the banks. `store(m, n, c)` writes each element once.
-template <int TM, int TN, bool ROT, class FA, class FB, class FC>
+// neighbouring columns of a row-major B. `store(m, n, c)` writes each
+// element once.
+template <int TM, int TN, class FA, class FB, class FC>
 __device__ __forceinline__ void tile_gemm(int M, int N, int K, FA a, FB b, FC store) {
   const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
   for (int t = threadIdx.x; t < tiles_m * tiles_n; t += blockDim.x) {
@@ -216,8 +257,7 @@ __device__ __forceinline__ void tile_gemm(int M, int N, int K, FA a, FB b, FC st
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    int k = ROT ? tn % K : 0;
-    for (int kk = 0; kk < K; ++kk) {
+    for (int k = 0; k < K; ++k) {
       float av[TM], bv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) av[i] = a(ms[i], k);
@@ -227,7 +267,6 @@ __device__ __forceinline__ void tile_gemm(int M, int N, int K, FA a, FB b, FC st
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if (++k == K) k = 0;
     }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -335,7 +374,7 @@ __device__ void load_group(const T* ents, const uint8_t* pre, const uint8_t* pos
 struct Smem {
   char* ring_q;
   char* ring_o;
-  float *bo, *x, *qkv, *p, *a, *rowok, *post, *mask, *out, *da, *dl;
+  float *bo, *x, *qkv, *p, *a, *rowok, *post, *mask;
 };
 
 __device__ inline Smem carve(char* base, const Layout& L) {
@@ -344,8 +383,7 @@ __device__ inline Smem carve(char* base, const Layout& L) {
   s.ring_o = base + L.ring_o;
   float* f = reinterpret_cast<float*>(base + L.f0);
   s.bo = f + L.bo; s.x = f + L.x; s.qkv = f + L.qkv; s.p = f + L.p; s.a = f + L.a;
-  s.rowok = f + L.rowok; s.post = f + L.post; s.mask = f + L.mask; s.out = f + L.out;
-  s.da = f + L.da; s.dl = f + L.dl;
+  s.rowok = f + L.rowok; s.post = f + L.post; s.mask = f + L.mask;
   return s;
 }
 
@@ -362,8 +400,8 @@ __device__ void forward_group(int ns, const Dims& d, const Layout& L, const T* w
   const auto st = [=](int m, int n, float c) { sqkv[m * c3 + n] = Num<T>::round(c); };
   if (RES) {
     stream_rows<T>(wqkv, D, c3, d.ks, S.ring_q, L.slot_q, loaded, [&](int, int, const T* w) {
-      tile_gemm<4, 6, false>(ns * d.ne, c3, D, a,
-                             [=](int k, int n) { return Num<T>::to_f(w[k * c3 + n]); }, st);
+      tile_gemm<4, 6>(ns * d.ne, c3, D, a,
+                      [=](int k, int n) { return Num<T>::to_f(w[k * c3 + n]); }, st);
     });
   } else {
     stream_gemm<T, 4, 6, 4>(ns * d.ne, c3, D, a, wqkv, d.ks, S.ring_q, L.slot_q, st);
@@ -442,8 +480,8 @@ entity_attn_fwd_kernel(const T* __restrict__ ents, const T* __restrict__ wqkv,
     };
     if (RES) {
       stream_rows<T>(wo, E, O, d.ks, S.ring_o, L.slot_o, loaded, [&](int, int, const T* w) {
-        tile_gemm<4, 2, false>(ns * d.nq, O, E, a,
-                               [=](int k, int n) { return Num<T>::to_f(w[k * O + n]); }, st);
+        tile_gemm<4, 2>(ns * d.nq, O, E, a,
+                        [=](int k, int n) { return Num<T>::to_f(w[k * O + n]); }, st);
       });
     } else {
       stream_gemm<T, 4, 2, 2>(ns * d.nq, O, E, a, wo, d.ks, S.ring_o, L.slot_o, st);
@@ -452,250 +490,287 @@ entity_attn_fwd_kernel(const T* __restrict__ ents, const T* __restrict__ wqkv,
   }
 }
 
-// Per-sample backward: recomputes the forward and writes, as f32, dqkv (for
-// entity_attn_dents_kernel and entity_attn_wgrad_kernel), attn and the
-// post-masked g (for entity_attn_wgrad_kernel).
-template <typename T, bool RES>
+// Calls body(r, c) once for every row r < rows and column c < cols over the
+// 32 lanes of a warp: a lane keeps one column and steps over the rows, so no
+// index is divided per element.
+template <class F>
+__device__ __forceinline__ void warp_rows_cols(int rows, int cols, F body) {
+  const int lane = threadIdx.x & 31;
+  const int cpp = min(cols, 32), rpp = 32 / cpp;
+  const int tc = lane % cpp, tr = lane / cpp;
+  if (tr >= rpp) return;
+  for (int c = tc; c < cols; c += cpp)
+    for (int r = tr; r < rows; r += rpp) body(r, c);
+}
+
+// As warp_rows_cols, four of a lane's rows at a time: body(rs, n, c) gets
+// the rows rs[u] (u < 4; those from n on repeat the last valid one, so loads
+// stay in range) and writes only u < n. A column value read once then feeds
+// four independent sums.
+template <class F>
+__device__ __forceinline__ void warp_rows4_cols(int rows, int cols, F body) {
+  const int lane = threadIdx.x & 31;
+  const int cpp = min(cols, 32), rpp = 32 / cpp;
+  const int tc = lane % cpp, tr = lane / cpp;
+  if (tr >= rpp) return;
+  for (int c = tc; c < cols; c += cpp)
+    for (int r = tr; r < rows; r += 4 * rpp) {
+      const int n = min(4, (rows - r + rpp - 1) / rpp);
+      int rs[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) rs[u] = r + min(u, n - 1) * rpp;
+      body(rs, n, c);
+    }
+}
+
+// rows x cols floats from src (row stride ld_src) to shared dst (row stride
+// ld_dst), over a warp's lanes: 16-byte cp.async where source and
+// destination are 16-byte aligned, else plain copies
+__device__ __forceinline__ void warp_copy_rows(float* dst, int ld_dst, const float* src,
+                                               int ld_src, int rows, int cols) {
+  if (cols % 4 == 0 && ld_dst % 4 == 0 && ld_src % 4 == 0 && ((uintptr_t)src & 15) == 0) {
+    warp_rows_cols(rows, cols / 4, [&](int r, int c4) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst + r * ld_dst + 4 * c4);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src + (size_t)r * ld_src + 4 * c4));
+    });
+  } else {
+    warp_rows_cols(rows, cols,
+                   [&](int r, int c) { dst[r * ld_dst + c] = src[(size_t)r * ld_src + c]; });
+  }
+}
+
+// op over the G lanes of the caller's group (G a power of 2 dividing 32,
+// groups of consecutive lanes), by xor shuffles: every lane of a group gets
+// the same bits
+template <class Op>
+__device__ __forceinline__ float group_reduce(float v, int G, Op op) {
+  for (int o = G / 2; o > 0; o /= 2) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// acc[u] = sum over k < n of a[u][k] * b[k] for four rows a[u], in order;
+// b read once for the four (four floats a load where n is a multiple of 4)
+__device__ __forceinline__ void rows_dot(const float* const (&a)[4], const float* b, int n,
+                                         float (&acc)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) acc[u] = 0.f;
+  if (n % 4 == 0) {
+    for (int k = 0; k < n; k += 4) {
+      const float4 y = *reinterpret_cast<const float4*>(b + k);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(a[u] + k);
+        acc[u] = fmaf(x.x, y.x, acc[u]);
+        acc[u] = fmaf(x.y, y.y, acc[u]);
+        acc[u] = fmaf(x.z, y.z, acc[u]);
+        acc[u] = fmaf(x.w, y.w, acc[u]);
+      }
+    }
+  } else {
+    for (int k = 0; k < n; ++k)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(a[u][k], b[k], acc[u]);
+  }
+}
+
+// Stage (ii) of the backward, no weights: one warp per (sample, head), H
+// warps per sample and `spb` samples per block, each warp in its own slice of
+// shared memory, so the phases are ordered by __syncwarp and no block barrier.
+// From the rounded q (Nq rows) and k|v (Ne rows) of stage (i) and the raw
+// dattn = g W_o^T, it recomputes the head's softmax weights and attn and
+// forms its VJP. The warp reads all of its head's rows before it writes any,
+// so the outputs go in place, as f32:
+//   * attn * row_ok, rounded, over dattn (for dW_o);
+//   * dq * scale over q, [dk * scale | dv] over k|v, each rounded where
+//     pallas_attn.py:312 rounds dqkv;
+//   * g * post_keep into gm (for dW_o and db_o), a share per head.
+// dattn is masked and rounded as pallas_attn.py:279-288 does: (g * post_keep)
+// W_o^T equals (g W_o^T) * post_keep exactly, post_keep being 0 or 1.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-entity_attn_bwd_kernel(const T* __restrict__ ents, const T* __restrict__ g,
-                       const T* __restrict__ wqkv, const T* __restrict__ wo,
-                       const uint8_t* __restrict__ pre, const uint8_t* __restrict__ post,
-                       float* __restrict__ dqkv_out, float* __restrict__ attn_out,
-                       float* __restrict__ g_out, Dims d) {
+entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
+                              float* __restrict__ da, const T* __restrict__ g,
+                              const uint8_t* __restrict__ pre, const uint8_t* __restrict__ post,
+                              float* __restrict__ gm, Dims d) {
   extern __shared__ __align__(16) char smem[];
-  const Layout L = make_layout(d, sizeof(T));
-  const Smem S = carve(smem, L);
-  const int c3 = 3 * d.e, hd = d.e / d.h;
-  bool loaded = false;
+  const WarpLayout L = make_warp_layout(d);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.x * d.spb + warp / d.h, h = warp % d.h;
+  if (s >= d.bp) return;  // the last block's spare warps; no block barrier follows
+  float* f = reinterpret_cast<float*>(smem) + warp * L.floats;
+  float *sq = f + L.q, *sk = f + L.k, *sv = f + L.v, *sda = f + L.da;
+  float *sw = f + L.w, *sdl = f + L.dl, *smask = f + L.mask, *srowok = f + L.rowok;
+  float* spost = f + L.post;
+  const int E = d.e, E2 = 2 * d.e, O = d.o, hd = d.e / d.h, hdp = L.hdp;
+  const int nq = d.nq, ne = d.ne;
+  float* gq = q + (size_t)s * nq * E + h * hd;    // row r of q_h at gq + r * E
+  float* gkv = kv + (size_t)s * ne * E2 + h * hd;  // row j of k_h at gkv + j * E2, v_h + E
+  float* gda = da + (size_t)s * nq * E + h * hd;
 
-  for (int s0 = blockIdx.x * d.spb; s0 < d.bp; s0 += gridDim.x * d.spb) {
-    const int ns = min(d.spb, d.bp - s0);
-    const int rows = ns * d.nq;
-    load_group<T>(ents, pre, post, s0, ns, d, S.x, S.mask, S.rowok, S.post);
-    forward_group<T, RES>(ns, d, L, wqkv, loaded, S);
+  // the head's rows of q, k, v and the raw dattn, every copy in flight at once
+  warp_copy_rows(sq, hdp, gq, E, nq, hd);
+  warp_copy_rows(sk, hdp, gkv, E2, ne, hd);
+  warp_copy_rows(sv, hdp, gkv + E, E2, ne, hd);
+  warp_copy_rows(sda, hdp, gda, E, nq, hd);
+  asm volatile("cp.async.commit_group;\n" ::);
+  warp_rows_cols(nq, ne, [&](int r, int j) {
+    smask[r * ne + j] = pre ? (float)pre[((size_t)s * d.mask_rows + r) * ne + j] : 0.f;
+  });
+  for (int r = lane; r < nq; r += 32) spost[r] = post[(size_t)s * nq + r] ? 0.f : 1.f;
+  __syncwarp();
+  for (int r = lane; r < nq; r += 32) {
+    float ok = 0.f;
+    for (int j = 0; j < ne; ++j)
+      if (smask[r * ne + j] == 0.f) { ok = 1.f; break; }
+    srowok[r] = ok;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncwarp();
+  warp_rows_cols(nq, hd, [&](int r, int c) {
+    sda[r * hdp + c] = Num<T>::round(sda[r * hdp + c] * spost[r] * srowok[r]);
+  });
+  const size_t g0 = (size_t)s * nq * O;
+  for (int i = h * 32 + lane; i < nq * O; i += d.h * 32)
+    gm[g0 + i] = Num<T>::to_f(g[g0 + i]) * spost[i / O];
+  __syncwarp();
 
-    // out = (attn @ W_o + b_o) * post_keep: g flows through post_keep first
-    const T* gsrc = g + (size_t)s0 * d.nq * d.o;
-    float* sg = S.out;
-    for (int i = threadIdx.x; i < rows * d.o; i += blockDim.x) {
-      const float v = Num<T>::to_f(gsrc[i]) * S.post[i / d.o];
-      sg[i] = v;
-      g_out[(size_t)s0 * d.nq * d.o + i] = v;
-    }
-    for (int i = threadIdx.x; i < rows * d.e; i += blockDim.x)
-      attn_out[(size_t)s0 * d.nq * d.e + i] = S.a[i];
-    const int E = d.e, O = d.o;
-    // dattn = g @ W_o^T, one slice of W_o rows (columns e of dattn) at a
-    // time; row_ok folds into the attention gradient
-    float* sda = S.da;
-    const float* srowok = S.rowok;
-    stream_rows<T>(wo, E, O, d.ks, S.ring_o, L.slot_o, loaded,
-                   [&](int e0, int kn, const T* w) {
-                     auto a = [=](int m, int k) { return Num<T>::round(sg[m * O + k]); };
-                     auto b = [=](int k, int n) { return Num<T>::to_f(w[n * O + k]); };
-                     auto st = [=](int m, int n, float c) { sda[m * E + e0 + n] = c * srowok[m]; };
-                     // a streamed slice is a narrow N: smaller tiles keep the threads busy
-                     if (RES) tile_gemm<4, 2, true>(rows, kn, O, a, b, st);
-                     else tile_gemm<1, 1, true>(rows, kn, O, a, b, st);
-                   });
-
-    // dw = dattn_h @ v_h^T per (s, h, q, j)
-    float* sdl = S.dl;
-    const float* sqkv = S.qkv;
-    const float* sp = S.p;
-    const int n_p = ns * d.h * d.nq * d.ne;
-    for (int i = threadIdx.x; i < n_p; i += blockDim.x) {
-      int t = i / d.ne;
-      const int j = i - t * d.ne;
-      const int q = t % d.nq;
-      t /= d.nq;
-      const int h = t % d.h, s = t / d.h;
-      const float* dar = sda + (s * d.nq + q) * d.e + h * hd;
-      const float* vr = sqkv + (s * d.ne + j) * c3 + 2 * d.e + h * hd;
-      const int k0 = j % hd;
-      float acc = 0.f;
-      for (int kk = 0; kk < hd; ++kk) {
-        int k = kk + k0;
-        if (k >= hd) k -= hd;
-        acc = fmaf(Num<T>::round(dar[k]), vr[k], acc);
+  // scores, blocked pairs at kNeg, then the softmax of each query row
+  warp_rows4_cols(nq, ne, [&](const int (&rs)[4], int n, int j) {
+    const float* const a[4] = {sq + rs[0] * hdp, sq + rs[1] * hdp, sq + rs[2] * hdp,
+                               sq + rs[3] * hdp};
+    float acc[4];
+    rows_dot(a, sk + j * hdp, hd, acc);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) {
+        const int i = rs[u] * ne + j;
+        sw[i] = smask[i] != 0.f ? kNeg : acc[u] * d.scale;
       }
-      sdl[i] = acc;
+  });
+  __syncwarp();
+  // a group of G lanes (a power of 2, G >= min(Ne, 32)) per query row, 32 / G
+  // rows at a time; a group past the last row repeats it and writes nothing
+  int G = 1;
+  while (G < ne && G < 32) G *= 2;
+  const int jl = lane % G;
+  for (int r0 = 0; r0 < nq; r0 += 32 / G) {
+    const int r = r0 + lane / G;
+    const bool live = r < nq;
+    float* row = sw + min(r, nq - 1) * ne;
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int j = jl; j < ne; j += G) m = fmaxf(m, row[j]);
+    m = group_reduce(m, G, [](float a, float b) { return fmaxf(a, b); });
+    float sum = 0.f;
+    for (int j = jl; j < ne; j += G) {
+      const float e = expf(row[j] - m);
+      if (live) row[j] = e;
+      sum += e;
     }
-    __syncthreads();
-    // softmax VJP: dl = w * (dw - sum(dw * w))
-    for (int r = threadIdx.x; r < ns * d.h * d.nq; r += blockDim.x) {
-      const float* wr = sp + r * d.ne;
-      float* dr = sdl + r * d.ne;
-      float dot = 0.f;
-      for (int j = 0; j < d.ne; ++j) dot += dr[j] * wr[j];
-      for (int j = 0; j < d.ne; ++j) dr[j] = Num<T>::round(wr[j] * (dr[j] - dot));
-    }
-    __syncthreads();
+    sum = group_reduce(sum, G, [](float a, float b) { return a + b; });
+    for (int j = jl; j < ne; j += G)
+      if (live) row[j] = row[j] / sum;
+  }
+  __syncwarp();
 
-    // dqkv (s, n, c): dq rows >= nq stay 0
-    float* qdst = dqkv_out + (size_t)s0 * d.ne * c3;
-    const int n_qkv = ns * d.ne * c3;
-    for (int i = threadIdx.x; i < n_qkv; i += blockDim.x) {
-      const int row = i / c3, c = i - row * c3;
-      const int s = row / d.ne, n = row - s * d.ne;
-      const float* base = sqkv + (size_t)s * d.ne * c3;
-      float val = 0.f;
-      if (c < d.e) {
-        if (n < d.nq) {
-          const float* dr = sdl + ((s * d.h + c / hd) * d.nq + n) * d.ne;
-          float acc = 0.f;
-          for (int j = 0; j < d.ne; ++j) acc = fmaf(dr[j], base[j * c3 + d.e + c], acc);
-          val = acc * d.scale;
-        }
-      } else if (c < 2 * d.e) {
-        const int e = c - d.e;
-        const float* dc = sdl + (s * d.h + e / hd) * d.nq * d.ne + n;
-        float acc = 0.f;
-        for (int q = 0; q < d.nq; ++q) acc = fmaf(dc[q * d.ne], base[q * c3 + e], acc);
-        val = acc * d.scale;
-      } else {
-        const int e = c - 2 * d.e;
-        const float* wc = sp + (s * d.h + e / hd) * d.nq * d.ne + n;
-        const float* dac = sda + (size_t)s * d.nq * d.e + e;
-        float acc = 0.f;
-        for (int q = 0; q < d.nq; ++q)
-          acc = fmaf(Num<T>::round(wc[q * d.ne]), Num<T>::round(dac[q * d.e]), acc);
-        val = acc;
-      }
-      qdst[i] = Num<T>::round(val);
+  // attn (over dattn in device memory) and dw = dattn_h v_h^T
+  warp_rows4_cols(nq, hd, [&](const int (&rs)[4], int n, int c) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < ne; ++j) {
+      const float v = sv[j * hdp + c];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(Num<T>::round(sw[rs[u] * ne + j]), v, acc[u]);
     }
-    __syncthreads();  // the next group's loads overwrite what this loop reads
-    loaded = RES;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) gda[rs[u] * E + c] = Num<T>::round(acc[u] * srowok[rs[u]]);
+  });
+  warp_rows4_cols(nq, ne, [&](const int (&rs)[4], int n, int j) {
+    const float* const a[4] = {sda + rs[0] * hdp, sda + rs[1] * hdp, sda + rs[2] * hdp,
+                               sda + rs[3] * hdp};
+    float acc[4];
+    rows_dot(a, sv + j * hdp, hd, acc);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) sdl[rs[u] * ne + j] = acc[u];
+  });
+  __syncwarp();
+  // softmax VJP: dl = w * (dw - sum(dw * w))
+  for (int r0 = 0; r0 < nq; r0 += 32 / G) {
+    const int r = min(r0 + lane / G, nq - 1);
+    const bool live = r0 + lane / G < nq;
+    const float* wr = sw + r * ne;
+    float* dr = sdl + r * ne;
+    float dot = 0.f;
+    for (int j = jl; j < ne; j += G) dot += dr[j] * wr[j];
+    dot = group_reduce(dot, G, [](float a, float b) { return a + b; });
+    for (int j = jl; j < ne; j += G)
+      if (live) dr[j] = Num<T>::round(wr[j] * (dr[j] - dot));
+  }
+  __syncwarp();
+
+  // dq = dl k_h * scale over the Nq query rows only; dk = dl^T q_h * scale
+  // and dv = w^T dattn_h over all Ne rows
+  warp_rows4_cols(nq, hd, [&](const int (&rs)[4], int n, int c) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < ne; ++j) {
+      const float k = sk[j * hdp + c];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(sdl[rs[u] * ne + j], k, acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) gq[rs[u] * E + c] = Num<T>::round(acc[u] * d.scale);
+  });
+  warp_rows4_cols(ne, hd, [&](const int (&js)[4], int n, int c) {
+    float dk[4] = {0.f, 0.f, 0.f, 0.f}, dv[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < nq; ++r) {
+      const float x = sq[r * hdp + c], y = sda[r * hdp + c];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        dk[u] = fmaf(sdl[r * ne + js[u]], x, dk[u]);
+        dv[u] = fmaf(Num<T>::round(sw[r * ne + js[u]]), y, dv[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) {
+        gkv[js[u] * E2 + c] = Num<T>::round(dk[u] * d.scale);
+        gkv[js[u] * E2 + E + c] = Num<T>::round(dv[u]);
+      }
+  });
+}
+
+// dst (cols x rows) = src (rows x cols, row-major)^T through a 32 x 32 tile
+// of shared memory, blocks of 32 x 8 threads
+template <typename T>
+__global__ void entity_attn_transpose_kernel(const T* __restrict__ src, int rows, int cols,
+                                             T* __restrict__ dst) {
+  __shared__ T tile[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int r = r0 + i, c = c0 + threadIdx.x;
+    if (r < rows && c < cols) tile[i][threadIdx.x] = src[(size_t)r * cols + c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int c = c0 + i, r = r0 + threadIdx.x;
+    if (r < rows && c < cols) dst[(size_t)c * rows + r] = tile[threadIdx.x][i];
   }
 }
 
-// dEnts (R x D) = dqkv (R x C, f32) @ W_qkv^T (W_qkv: D x C), R = Bp*Ne,
-// C = 3E: each block one kTile x kTile output tile over all of C, staged
-// kRowStep columns at a time; 16 x 16 threads, 4 x 4 outputs each.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-entity_attn_dents_kernel(const float* __restrict__ dqkv, const T* __restrict__ w,
-                         float* __restrict__ dents, int R, int D, int C) {
-  __shared__ float sa[kRowStep][kTile + 1];  // [k][row]
-  __shared__ float sb[kRowStep][kTile + 1];  // [k][column of dents]
-  const int r0 = blockIdx.x * kTile, d0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int k0 = 0; k0 < C; k0 += kRowStep) {
-    for (int u = threadIdx.x; u < kRowStep * kTile; u += blockDim.x) {
-      const int i = u / kRowStep, kk = u - i * kRowStep, k = k0 + kk;
-      sa[kk][i] = (r0 + i < R && k < C) ? dqkv[(size_t)(r0 + i) * C + k] : 0.f;
-      sb[kk][i] = (d0 + i < D && k < C) ? Num<T>::to_f(w[(size_t)(d0 + i) * C + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kRowStep; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = sa[kk][ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = sb[kk][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int dd = d0 + tx + 16 * b;
-      if (r < R && dd < D) dents[(size_t)r * D + dd] = acc[a][b];
-    }
-  }
-}
-
-// The three weight-gradient products of the backward, each as tiles of
-// kTile x kTile outputs: out_p = X_p^T Y_p over the rows of chunk c.
-//   p = 0: dW_qkv (D x 3E) from X = ents (Bp*Ne x D, T), Y = dqkv (f32)
-//   p = 1: dW_o (E x O) from X = attn (Bp*Nq x E, f32), Y = g (f32)
-//   p = 2: db_o (1 x O) from X = ones, Y = g
-// Block (tile, chunk) writes its tile of partials[chunk]; the chunks are
-// summed in order by entity_attn_reduce_kernel.
-struct WgradProduct {
-  const void* x;  // null = ones
-  bool x_is_t;    // X has the input type T (else f32)
-  const float* y;
-  int rows, p, q;
-  size_t offset;  // of this product in a partials row
-};
-
-struct WgradArgs {
-  WgradProduct prod[3];
-  int tiles[3];  // tiles of each product
-  int n_chunks;
-  size_t k_total;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-entity_attn_wgrad_kernel(WgradArgs args, float* __restrict__ partials) {
-  __shared__ float sx[kRowStep * kTile];
-  __shared__ float sy[kRowStep * kTile];
-  int t = blockIdx.x, pi = 0;
-  while (pi < 2 && t >= args.tiles[pi]) t -= args.tiles[pi++];
-  const WgradProduct& P = args.prod[pi];
-  const int tiles_q = (P.q + kTile - 1) / kTile;
-  const int i0 = (t / tiles_q) * kTile, j0 = (t % tiles_q) * kTile;
-  const int chunk = blockIdx.y;
-  const int r_begin = (int)((long long)P.rows * chunk / args.n_chunks);
-  const int r_end = (int)((long long)P.rows * (chunk + 1) / args.n_chunks);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;  // 16 x 16 threads, 4 x 4 outputs each
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int r0 = r_begin; r0 < r_end; r0 += kRowStep) {
-    const int nr = min(kRowStep, r_end - r0);
-    for (int u = threadIdx.x; u < kRowStep * kTile; u += blockDim.x) {
-      const int rr = u / kTile, cc = u - rr * kTile;
-      const int i = i0 + cc, j = j0 + cc;
-      const size_t r = (size_t)r0 + rr;
-      float xv = 0.f;
-      if (rr < nr && i < P.p) {
-        if (P.x == nullptr) xv = 1.f;
-        else if (P.x_is_t) xv = Num<T>::to_f(static_cast<const T*>(P.x)[r * P.p + i]);
-        else xv = static_cast<const float*>(P.x)[r * P.p + i];
-      }
-      sx[u] = xv;
-      sy[u] = (rr < nr && j < P.q) ? P.y[r * P.q + j] : 0.f;
-    }
-    __syncthreads();
-    for (int rr = 0; rr < nr; ++rr) {
-      float xv[4], yv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) xv[a] = sx[rr * kTile + ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) yv[b] = sy[rr * kTile + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-  float* dst = partials + (size_t)chunk * args.k_total + P.offset;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tx + 16 * b;
-      if (i < P.p && j < P.q) dst[(size_t)i * P.q + j] = acc[a][b];
-    }
+// partials[c][offset + o] = sum over the rows of chunk c, in order, of
+// x[row][o]: db_o's chunk partials from the post-masked g
+__global__ void entity_attn_colsum_kernel(const float* __restrict__ x, int rows, int cols,
+                                          int chunks, size_t k_total, size_t offset,
+                                          float* __restrict__ partials) {
+  const int c = blockIdx.x;
+  const int r0 = (int)((long long)rows * c / chunks);
+  const int r1 = (int)((long long)rows * (c + 1) / chunks);
+  for (int o = threadIdx.x; o < cols; o += blockDim.x) {
+    float acc = 0.f;
+    for (int r = r0; r < r1; ++r) acc += x[(size_t)r * cols + o];
+    partials[(size_t)c * k_total + offset + o] = acc;
   }
 }
 
@@ -720,8 +795,6 @@ Dims make_dims(int bp, int ne, int nq, int d, int e, int o, int h, int mask_rows
   return dims;
 }
 
-int tiles_of(int p, int q) { return ((p + kTile - 1) / kTile) * ((q + kTile - 1) / kTile); }
-
 // One instance per (type, resident): the streamed instance keeps ~200
 // registers of partial sums per thread, which would halve the resident
 // instance's occupancy if they shared one register allocation.
@@ -737,16 +810,80 @@ cudaError_t launch_fwd(const void* ents, const void* wqkv, const void* wo, const
   return cudaGetLastError();
 }
 
-template <typename T, bool RES>
-cudaError_t launch_bwd(const void* ents, const void* g, const void* wqkv, const void* wo,
-                       const uint8_t* pm, const uint8_t* qm, void* dqkv, void* attn, void* gm,
-                       const Dims& dims, int grid, int smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(entity_attn_bwd_kernel<T, RES>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  entity_attn_bwd_kernel<T, RES><<<grid, kThreads, smem, st>>>(
-      (const T*)ents, (const T*)g, (const T*)wqkv, (const T*)wo, pm, qm, (float*)dqkv,
-      (float*)attn, (float*)gm, dims);
+// f32 scratch of the backward, each (rows, columns) row-major:
+//   q (Bp*Nq, E): Q, then dq;  kv (Bp*Ne, 2E): K|V, then dK|dV;
+//   da (Bp*Nq, E): dattn, then attn;  gm (Bp*Nq, O): g * post_keep;
+//   partials (chunks, D*3E + E*O + O): the weight gradients' chunk partials;
+//   wt (3E*D + O*E, of the inputs' type): the transposed weights.
+template <typename T>
+struct BwdScratch {
+  float *q, *kv, *da, *gm, *partials;
+  T* wt;  // W_qkv^T (3E, D), then W_o^T (O, E)
+};
+
+// The backward as stages on one stream:
+//   (i)   W_qkv^T and W_o^T into wt; K|V = ents W_kv (Bp*Ne rows), Q =
+//         ents[:, :Nq] W_q (Bp*Nq rows), dattn = g W_o^T, through gemm::launch;
+//   (ii)  entity_attn_bwd_sample_kernel;
+//   (iii) dEnts = dK|dV W_kv^T, then += dq W_q^T on the query rows; dW_kv =
+//         ents^T dK|dV, dW_q = ents[:, :Nq]^T dq and dW_o = attn^T gm as
+//         chunk partials of their tall K, db_o's partials from gm, and the
+//         chunks summed in order.
+template <typename T>
+cudaError_t launch_bwd(const T* ents, const T* g, const T* wqkv, const T* wo, const uint8_t* pm,
+                       const uint8_t* qm, float* dents, const BwdScratch<T>& s, float* dweights,
+                       const Dims& d, int grid, int smem, int chunks, cudaStream_t st) {
+  using gemm::operand;
+  using gemm::output;
+  const int E = d.e, E2 = 2 * d.e, E3 = 3 * d.e, rnd = sizeof(T) == 2;
+  const int rows_e = d.bp * d.ne, rows_q = d.bp * d.nq;
+  const size_t n_w = (size_t)d.d * E3, n_wo = (size_t)E * d.o;
+  const long long k_total = (long long)(n_w + n_wo + d.o);
+  cudaError_t err;
+#define REFIL_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return err
+  // (i)
+  const dim3 tr_threads(32, 8);
+  entity_attn_transpose_kernel<T><<<dim3((E3 + 31) / 32, (d.d + 31) / 32), tr_threads, 0, st>>>(
+      wqkv, d.d, E3, s.wt);
+  entity_attn_transpose_kernel<T><<<dim3((d.o + 31) / 32, (E + 31) / 32), tr_threads, 0, st>>>(
+      wo, E, d.o, s.wt + (size_t)E3 * d.d);
+  REFIL_TRY(cudaGetLastError());
+  const T* wqkv_t = s.wt;                      // (3E, D): W_q^T rows, then W_kv^T rows
+  const T* wo_t = s.wt + (size_t)E3 * d.d;     // (O, E)
+  REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d), operand(wqkv + E, E3),
+                                      output(s.kv, E2, 1, 1, 0, rnd), rows_e, E2, d.d, 1, st)));
+  REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d, d.nq, d.ne), operand(wqkv, E3),
+                                      output(s.q, E, 1, 1, 0, rnd), rows_q, E, d.d, 1, st)));
+  REFIL_TRY((gemm::launch<T, T, true>(operand(g, d.o), operand(wo_t, E), output(s.da, E),
+                                      rows_q, E, d.o, 1, st)));
+  // (ii)
+  REFIL_TRY(cudaFuncSetAttribute(entity_attn_bwd_sample_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  entity_attn_bwd_sample_kernel<T><<<grid, 32 * d.h * d.spb, smem, st>>>(s.q, s.kv, s.da, g,
+                                                                         pm, qm, s.gm, d);
+  REFIL_TRY(cudaGetLastError());
+  // (iii)
+  REFIL_TRY((gemm::launch<float, T, true>(operand(s.kv, E2), operand(wqkv_t + E * d.d, d.d),
+                                          output(dents, d.d), rows_e, d.d, E2, 1, st)));
+  REFIL_TRY((gemm::launch<float, T, true>(operand(s.q, E), operand(wqkv_t, d.d),
+                                          output(dents, d.d, d.nq, d.ne, 1), rows_q, d.d, E, 1,
+                                          st)));
+  REFIL_TRY((gemm::launch<T, float, false>(
+      operand(ents, d.d), operand(s.kv, E2), output(s.partials + E, E3, 1, 1, 0, 0, k_total),
+      d.d, E2, rows_e, chunks, st)));
+  REFIL_TRY((gemm::launch<T, float, false>(
+      operand(ents, d.d, d.nq, d.ne), operand(s.q, E),
+      output(s.partials, E3, 1, 1, 0, 0, k_total), d.d, E, rows_q, chunks, st)));
+  REFIL_TRY((gemm::launch<float, float, false>(
+      operand(s.da, E), operand(s.gm, d.o), output(s.partials + n_w, d.o, 1, 1, 0, 0, k_total),
+      E, d.o, rows_q, chunks, st)));
+  entity_attn_colsum_kernel<<<chunks, 128, 0, st>>>(s.gm, rows_q, d.o, chunks, (size_t)k_total,
+                                                    n_w + n_wo, s.partials);
+  REFIL_TRY(cudaGetLastError());
+  entity_attn_reduce_kernel<<<(int)((k_total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      s.partials, chunks, (int)k_total, dweights);
+#undef REFIL_TRY
   return cudaGetLastError();
 }
 
@@ -754,13 +891,18 @@ cudaError_t launch_bwd(const void* ents, const void* g, const void* wqkv, const 
 
 extern "C" {
 
-// Chooses the launch of a call: samples per block iteration (spb), weight
-// rows per slice (ks; >= max(d, e) means the weights stay resident), the
-// persistent grid, the dynamic shared memory in bytes, and, for the
-// backward, the row chunks of the weight-gradient products. The most
+// Chooses the launch of a call. Forward: samples per block iteration (spb),
+// weight rows per slice (ks; >= max(d, e) means the weights stay resident),
+// the persistent grid and the dynamic shared memory in bytes; the most
 // samples per block first; at each, resident where both weight matrices fit
-// beside the group, else the weights stream in slices of 16 or 8 rows. Returns cudaErrorInvalidValue if
-// even one sample per block does not fit.
+// beside the group, else the weights stream in slices of 16 or 8 rows.
+// Backward: the per-sample kernel's samples per block (a warp per head of
+// each; the most of 8, 4, 2, 1 within 8 warps and 48 KB of shared memory, so
+// several blocks share an SM), its grid (one block per group), its shared
+// memory, and the row chunks of the weight gradients (two blocks per SM for
+// each single-tile product, each chunk at least 64 rows); ks is 0. Returns
+// cudaErrorInvalidValue if even one sample per block does not fit (or, for
+// the backward, for more than 8 heads).
 int entity_attn_plan(int bwd, int dtype, int bp, int ne, int nq, int d, int e, int o, int h,
                      int device, int* spb, int* ks, int* grid, int* smem, int* chunks) {
   int n_sm = 0, optin = 0, per_sm = 0;
@@ -772,6 +914,24 @@ int entity_attn_plan(int bwd, int dtype, int bp, int ne, int nq, int d, int e, i
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
   if (err != cudaSuccess) return (int)err;
+  if (bwd) {
+    for (int s = 8; s >= 1; s /= 2) {
+      const Dims dims = make_dims(bp, ne, nq, d, e, o, h, 0, s, 0);
+      const size_t bytes = bwd_sample_smem(dims);
+      if (s > 1 && (h * s > 8 || bytes > 48 * 1024)) continue;
+      if (h > 8 || bytes > (size_t)optin) break;
+      *spb = s;
+      *ks = 0;
+      *grid = (bp + s - 1) / s;
+      *smem = (int)bytes;
+      int c = 2 * n_sm;
+      const int max_c = bp * nq / 64;
+      if (c > max_c) c = max_c;
+      *chunks = c < 1 ? 1 : c;
+      return (int)cudaSuccess;
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t elem = dtype == 0 ? 4 : 2;
   const int res_ks = d > e ? d : e;
   const int ks_try[3] = {res_ks, 16, 8};
@@ -779,9 +939,8 @@ int entity_attn_plan(int bwd, int dtype, int bp, int ne, int nq, int d, int e, i
     for (int ki = 0; ki < 3; ++ki) {
       if (ki > 0 && ks_try[ki] >= res_ks) continue;  // streaming only where it changes something
       const Layout L = make_layout(make_dims(bp, ne, nq, d, e, o, h, 0, s, ks_try[ki]), elem);
-      const size_t bytes = bwd ? L.bwd_bytes : L.fwd_bytes;
-      if (bytes > (size_t)optin) continue;
-      int blocks_per_sm = (int)(per_sm / (bytes + 1024));
+      if (L.fwd_bytes > (size_t)optin) continue;
+      int blocks_per_sm = (int)(per_sm / (L.fwd_bytes + 1024));
       if (blocks_per_sm < 1) blocks_per_sm = 1;
       if (blocks_per_sm > 4) blocks_per_sm = 4;
       const int need = (bp + s - 1) / s;
@@ -789,13 +948,8 @@ int entity_attn_plan(int bwd, int dtype, int bp, int ne, int nq, int d, int e, i
       *spb = s;
       *ks = ks_try[ki];
       *grid = need < cap ? need : cap;
-      *smem = (int)bytes;
-      // weight-gradient chunks: about 4 blocks per SM, at least kRowStep rows each
-      const int tiles = tiles_of(d, 3 * e) + tiles_of(e, o) + tiles_of(1, o);
-      int c = (4 * n_sm + tiles - 1) / tiles;
-      const int max_c = (bp * nq + kRowStep - 1) / kRowStep;
-      if (c > max_c) c = max_c;
-      *chunks = c < 1 ? 1 : c;
+      *smem = (int)L.fwd_bytes;
+      *chunks = 0;
       return (int)cudaSuccess;
     }
   }
@@ -823,53 +977,60 @@ int entity_attn_fwd(int dtype, const void* ents, const void* wqkv, const void* w
   return (int)err;
 }
 
-// scratch: f32 dqkv (Bp*Ne*3E), attn (Bp*Nq*E), g (Bp*Nq*O); partials:
-// (chunks, D*3E + E*O + O) f32; dweights: (D*3E + E*O + O,) f32, laid out as
-// dW_qkv, dW_o, db_o.
+// f32 scratch q (Bp*Nq*E), kv (Bp*Ne*2E), da (Bp*Nq*E), gm (Bp*Nq*O),
+// partials (chunks, D*3E + E*O + O); wt (3E*D + O*E) of the inputs' type;
+// dweights: (D*3E + E*O + O,) f32, laid
+// out as dW_qkv, dW_o, db_o. spb, grid, smem and chunks from
+// entity_attn_plan(bwd = 1).
 int entity_attn_bwd(int dtype, const void* ents, const void* g, const void* wqkv, const void* wo,
-                    const void* pre, const void* post, void* dents, void* dqkv, void* attn,
-                    void* gm, void* partials, void* dweights, int bp, int ne, int nq, int d,
-                    int e, int o, int h, int mask_rows, int spb, int ks, int grid, int smem,
-                    int chunks, void* stream) {
-  const Dims dims = make_dims(bp, ne, nq, d, e, o, h, pre ? mask_rows : 0, spb, ks);
+                    const void* pre, const void* post, void* dents, void* q, void* kv, void* da,
+                    void* gm, void* wt, void* partials, void* dweights, int bp, int ne, int nq,
+                    int d,
+                    int e, int o, int h, int mask_rows, int spb, int grid, int smem, int chunks,
+                    void* stream) {
+  const Dims dims = make_dims(bp, ne, nq, d, e, o, h, pre ? mask_rows : 0, spb, 0);
+  typedef __nv_bfloat16 B;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* pm = (const uint8_t*)pre;
   const uint8_t* qm = (const uint8_t*)post;
-  cudaError_t err;
-  WgradArgs wa;
-  const size_t n_w = (size_t)d * 3 * e, n_wo = (size_t)e * o;
-  wa.prod[0] = {ents, true, (const float*)dqkv, bp * ne, d, 3 * e, 0};
-  wa.prod[1] = {attn, false, (const float*)gm, bp * nq, e, o, n_w};
-  wa.prod[2] = {nullptr, false, (const float*)gm, bp * nq, 1, o, n_w + n_wo};
-  wa.tiles[0] = tiles_of(d, 3 * e);
-  wa.tiles[1] = tiles_of(e, o);
-  wa.tiles[2] = tiles_of(1, o);
-  wa.n_chunks = chunks;
-  wa.k_total = n_w + n_wo + o;
-  const dim3 wgrid(wa.tiles[0] + wa.tiles[1] + wa.tiles[2], chunks);
+  float *fq = (float*)q, *fkv = (float*)kv, *fda = (float*)da, *fgm = (float*)gm;
+  float* fp = (float*)partials;
+  const cudaError_t err =
+      dtype == 0
+          ? launch_bwd<float>((const float*)ents, (const float*)g, (const float*)wqkv,
+                              (const float*)wo, pm, qm, (float*)dents,
+                              BwdScratch<float>{fq, fkv, fda, fgm, fp, (float*)wt},
+                              (float*)dweights, dims, grid, smem, chunks, st)
+          : launch_bwd<B>((const B*)ents, (const B*)g, (const B*)wqkv, (const B*)wo, pm, qm,
+                          (float*)dents, BwdScratch<B>{fq, fkv, fda, fgm, fp, (B*)wt},
+                          (float*)dweights, dims, grid, smem, chunks, st);
+  return (int)err;
+}
+
+// The backward's matrix product alone (gemm.cuh), for its checks: C = A B
+// with A of type ta, B of type tb (0 = float32, 1 = bfloat16), ka = 1 where
+// A's contiguous index is k, row maps (group, stride) and leading dimensions
+// as in gemm::Operand and gemm::Output. Takes the five (ta, tb, ka) the
+// backward uses: float32 (0, 0, 1), (0, 0, 0); bfloat16 inputs (1, 1, 1),
+// (0, 1, 1), (1, 0, 0); any other returns cudaErrorInvalidValue.
+int entity_attn_gemm(int ta, int tb, int ka, const void* a, long long lda, int a_group,
+                     int a_stride, const void* b, long long ldb, void* c, long long ldc,
+                     int c_group, int c_stride, int add, int round_bf16, long long chunk_stride,
+                     int M, int N, int K, int chunks, void* stream) {
   typedef __nv_bfloat16 B;
-  const bool res = resident(dims);
-  err = dtype == 0 ? (res ? launch_bwd<float, true> : launch_bwd<float, false>)(
-                         ents, g, wqkv, wo, pm, qm, dqkv, attn, gm, dims, grid, smem, st)
-                   : (res ? launch_bwd<B, true> : launch_bwd<B, false>)(
-                         ents, g, wqkv, wo, pm, qm, dqkv, attn, gm, dims, grid, smem, st);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 dgrid((bp * ne + kTile - 1) / kTile, (d + kTile - 1) / kTile);
-  if (dtype == 0) {
-    entity_attn_dents_kernel<float><<<dgrid, kThreads, 0, st>>>(
-        (const float*)dqkv, (const float*)wqkv, (float*)dents, bp * ne, d, 3 * e);
-    entity_attn_wgrad_kernel<float><<<wgrid, kThreads, 0, st>>>(wa, (float*)partials);
-  } else {
-    entity_attn_dents_kernel<B><<<dgrid, kThreads, 0, st>>>(
-        (const float*)dqkv, (const B*)wqkv, (float*)dents, bp * ne, d, 3 * e);
-    entity_attn_wgrad_kernel<B><<<wgrid, kThreads, 0, st>>>(wa, (float*)partials);
+  const gemm::Operand A = gemm::operand(a, lda, a_group, a_stride);
+  const gemm::Operand Bo = gemm::operand(b, ldb);
+  const gemm::Output C =
+      gemm::output((float*)c, ldc, c_group, c_stride, add, round_bf16, chunk_stride);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (ta * 4 + tb * 2 + ka) {
+    case 1: return (int)gemm::launch<float, float, true>(A, Bo, C, M, N, K, chunks, st);
+    case 0: return (int)gemm::launch<float, float, false>(A, Bo, C, M, N, K, chunks, st);
+    case 7: return (int)gemm::launch<B, B, true>(A, Bo, C, M, N, K, chunks, st);
+    case 3: return (int)gemm::launch<float, B, true>(A, Bo, C, M, N, K, chunks, st);
+    case 4: return (int)gemm::launch<B, float, false>(A, Bo, C, M, N, K, chunks, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int k_total = (int)wa.k_total;
-  entity_attn_reduce_kernel<<<(k_total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      (const float*)partials, chunks, k_total, (float*)dweights);
-  return (int)cudaGetLastError();
 }
 
 const char* entity_attn_error_string(int err) {

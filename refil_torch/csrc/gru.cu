@@ -20,17 +20,25 @@
 // What bounds it on an H100: at T 151, R 768, H 64 the forward moves ~119 MB
 // (0.035 ms at 3.35 TB/s) and does 2.85 GFLOP (0.043 ms at 67 TFLOP/s f32),
 // but each of the 151 steps depends on the one before, so the chain of steps
-// sets the pace: a step's latency (an H-deep dot per output, the gates,
-// three block barriers) times T, not bytes or operations.
+// sets the pace: a step's latency (the dots, the gates, the barriers) times
+// T, not bytes or operations.
 //
-// Design (simple and right first):
-//   * One block per tile of kRows rows, so R = 768 spreads over 96 SMs; the
-//     ragged last tile is masked. Blocks run in no order, so the T loop that
-//     the TPU's sequential grid carried (pallas_gru.py:239) lives inside the
-//     kernel, with the h carry in f32 shared memory.
-//   * Thread c of 3H keeps column c of W_h in registers, so gh = h @ W_h is
-//     H FMAs per row with h read as a shared-memory broadcast, four floats
-//     per load; f32 FMA, no TF32, full-precision expf/tanhf.
+// Design:
+//   * Blocks run in no order, so the T loop that the TPU's sequential grid
+//     carried (pallas_gru.py:239) lives inside the kernel, with the h carry
+//     in f32 shared memory; the ragged last row tile is masked.
+//   * Forward: gru_fwd_plan picks 1, 2, 4 or 8 rows per block (a template
+//     instance each), the fewest whose grid is resident at once, so the rows
+//     spread over the SMs (R = 768: 2 rows, 384 blocks) and each SM holds
+//     several blocks whose warps hide each other's latency. Four lanes share
+//     each gate column's H-deep dot, W_h's rows of it in registers; the
+//     three columns of one gate index meet on those lanes through shuffles,
+//     so a step has one barrier and no round trip of h @ W_h through shared
+//     memory (see gru_fwd_kernel). f32 FMA, no TF32, full-precision
+//     expf/tanhf.
+//   * Backward: one block per kRows (8) rows; thread c of 3H keeps column c
+//     of W_h in registers, so gh = h @ W_h is H FMAs per row with h read as
+//     a shared-memory broadcast, four floats per load.
 //   * Step t+1's xw tile (and in the backward g and hs[t-2]) is copied with
 //     cp.async while step t computes.
 //   * Backward: thread c also keeps column c of its block's dW_h partial in
@@ -51,7 +59,7 @@
 namespace {
 
 constexpr int kHMax = 64;
-constexpr int kRows = 8;  // rows per block
+constexpr int kRows = 8;  // rows per block of the backward
 constexpr int kThreads = 3 * kHMax;
 
 template <typename T>
@@ -125,57 +133,97 @@ __device__ __forceinline__ void row_dots(const float* sh, const float (&wcol)[kH
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Forward: thread (j, p) = (threadIdx.x / 4, threadIdx.x % 4) keeps rows
+// [16p, 16p + 16) of W_h's three gate columns j, H + j, 2H + j in registers
+// and forms those rows' share of the three dots for each of the block's RPB
+// rows. The four parts of column j sit on four neighbouring lanes of one
+// warp; two xor shuffles sum them, (a0 + a1) + (a2 + a3) on every lane (the
+// same bits everywhere), so each lane of the quad holds the full r/z/n
+// pre-activations and lane p applies the gates of rows p, p + 4. The carry is
+// double-buffered in shared memory, each row padded to kHMax floats kept at
+// zero beyond H: step t reads buffer t & 1 and writes the other, so one
+// barrier per step suffices.
+constexpr int kParts = 4;                  // lanes sharing one column's dot
+constexpr int kPartK = kHMax / kParts;     // depth of each lane's share
+constexpr int kFwdThreads = kParts * kHMax;
+
+template <typename T, int RPB>
+__global__ void __launch_bounds__(kFwdThreads)
 gru_fwd_kernel(const T* __restrict__ xw, const float* __restrict__ wh,
                const float* __restrict__ bhn, const float* __restrict__ h0,
                T* __restrict__ hs, int steps, int rows, int H) {
-  __shared__ __align__(16) float sh[kRows * kHMax];  // the f32 carry
-  __shared__ float sgh[kRows * 3 * kHMax];  // h @ W_h of this step
-  __shared__ float sb[kHMax];
-  __shared__ __align__(16) T sxw[2][kRows * 3 * kHMax];
-  const int H3 = 3 * H, c = threadIdx.x;
-  const int r0 = blockIdx.x * kRows, nr = min(kRows, rows - r0);
+  __shared__ __align__(16) float sh[2][RPB * kHMax];  // the f32 carry, two buffers
+  __shared__ __align__(16) T sxw[2][RPB * 3 * kHMax];
+  const int H3 = 3 * H, j = threadIdx.x / kParts, p = threadIdx.x % kParts;
+  const int r0 = blockIdx.x * RPB, nr = min(RPB, rows - r0);
+  const bool col = j < H;
 
-  float wcol[kHMax];
+  float w[3][kPartK];
 #pragma unroll
-  for (int k = 0; k < kHMax; ++k) wcol[k] = (c < H3 && k < H) ? wh[k * H3 + c] : 0.f;
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-    const int r = i / H;
-    sh[i] = r < nr ? h0[(size_t)r0 * H + i] : 0.f;
+  for (int kk = 0; kk < kPartK; ++kk) {
+    const int k = p * kPartK + kk;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) w[g][kk] = (col && k < H) ? wh[k * H3 + g * H + j] : 0.f;
   }
-  for (int i = threadIdx.x; i < H; i += blockDim.x) sb[i] = bhn[i];
+  const float b = col ? bhn[j] : 0.f;
+  for (int i = threadIdx.x; i < 2 * RPB * kHMax; i += blockDim.x) {
+    const int r = (i / kHMax) % RPB, k = i % kHMax;
+    (&sh[0][0])[i] = (i < RPB * kHMax && r < nr && k < H) ? h0[(size_t)(r0 + r) * H + k] : 0.f;
+  }
   copy_to_shared(sxw[0], xw + (size_t)r0 * H3, nr * H3);
   cp_async_commit();
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
 
   for (int t = 0; t < steps; ++t) {
-    const int buf = t & 1;
-    __syncthreads();  // step t-1 is done with sxw[buf ^ 1] and sh
+    const int cur = t & 1;
     if (t + 1 < steps)
-      copy_to_shared(sxw[buf ^ 1], xw + ((size_t)(t + 1) * rows + r0) * H3, nr * H3);
+      copy_to_shared(sxw[cur ^ 1], xw + ((size_t)(t + 1) * rows + r0) * H3, nr * H3);
     cp_async_commit();
-    cp_async_wait_one();  // step t's tile has landed
-    __syncthreads();
-    if (c < H3) {
-      float acc[kRows];
-      row_dots(sh, wcol, H, acc);
+
+    float acc[3][RPB];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) sgh[r * H3 + c] = acc[r];
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int r = 0; r < RPB; ++r) acc[g][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kPartK; kk += 4) {
+#pragma unroll
+      for (int r = 0; r < RPB; ++r) {
+        const float4 h = *reinterpret_cast<const float4*>(&sh[cur][r * kHMax + p * kPartK + kk]);
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          acc[g][r] = fmaf(h.x, w[g][kk], acc[g][r]);
+          acc[g][r] = fmaf(h.y, w[g][kk + 1], acc[g][r]);
+          acc[g][r] = fmaf(h.z, w[g][kk + 2], acc[g][r]);
+          acc[g][r] = fmaf(h.w, w[g][kk + 3], acc[g][r]);
+        }
+      }
     }
-    __syncthreads();
-    const T* x = sxw[buf];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int r = 0; r < RPB; ++r) {
+        acc[g][r] += __shfl_xor_sync(0xffffffffu, acc[g][r], 1);
+        acc[g][r] += __shfl_xor_sync(0xffffffffu, acc[g][r], 2);
+      }
+
+    const T* x = sxw[cur];
     T* out = hs + ((size_t)t * rows + r0) * H;
-    for (int i = threadIdx.x; i < nr * H; i += blockDim.x) {
-      const int r = i / H, j = i - r * H;
-      const float* g = sgh + r * H3;
-      const T* xr = x + r * H3;
-      const float rg = sigmoidf(Num<T>::to_f(xr[j]) + g[j]);
-      const float zg = sigmoidf(Num<T>::to_f(xr[H + j]) + g[H + j]);
-      const float ng = tanhf(Num<T>::to_f(xr[2 * H + j]) + rg * (g[2 * H + j] + sb[j]));
-      const float hn = (1.f - zg) * ng + zg * sh[i];
-      sh[i] = hn;
-      out[i] = Num<T>::from_f(hn);
+#pragma unroll
+    for (int r = 0; r < RPB; ++r) {
+      if (r % kParts == p && r < nr && col) {
+        const T* xr = x + r * H3;
+        const float rg = sigmoidf(Num<T>::to_f(xr[j]) + acc[0][r]);
+        const float zg = sigmoidf(Num<T>::to_f(xr[H + j]) + acc[1][r]);
+        const float ng = tanhf(Num<T>::to_f(xr[2 * H + j]) + rg * (acc[2][r] + b));
+        const float hn = (1.f - zg) * ng + zg * sh[cur][r * kHMax + j];
+        sh[cur ^ 1][r * kHMax + j] = hn;
+        out[r * H + j] = Num<T>::from_f(hn);
+      }
     }
+    asm volatile("cp.async.wait_group 0;\n" ::);  // step t+1's tile has landed
+    __syncthreads();  // h_t complete; step t is done with sxw[cur] and sh[cur]
   }
 }
 
@@ -335,6 +383,23 @@ __global__ void gru_reduce_kernel(const float* __restrict__ partials, int n_bloc
   out[k] = acc;
 }
 
+template <int RPB>
+const void* fwd_instance(int dtype) {
+  return dtype == 0 ? (const void*)gru_fwd_kernel<float, RPB>
+                    : (const void*)gru_fwd_kernel<__nv_bfloat16, RPB>;
+}
+
+// the forward instance for (dtype, rows per block); null for another count
+const void* fwd_kernel(int dtype, int rpb) {
+  switch (rpb) {
+    case 1: return fwd_instance<1>(dtype);
+    case 2: return fwd_instance<2>(dtype);
+    case 4: return fwd_instance<4>(dtype);
+    case 8: return fwd_instance<8>(dtype);
+    default: return nullptr;
+  }
+}
+
 size_t bwd_smem_bytes(size_t elem) {
   const size_t floats = 3 * kHMax * kHMax + 3 * kRows * kHMax + 2 * kRows * 3 * kHMax + kHMax;
   const size_t tiles = 2 * kRows * 3 * kHMax + 2 * 2 * kRows * kHMax;
@@ -362,22 +427,46 @@ extern "C" {
 int gru_rows_per_block() { return kRows; }
 int gru_max_hidden() { return kHMax; }
 
-// dtype of xw and hs: 0 = float32, 1 = bfloat16. wh, bhn, h0 are float32.
-int gru_fwd(int dtype, const void* xw, const void* wh, const void* bhn, const void* h0, void* hs,
-            int steps, int rows, int H, void* stream) {
-  if (H < 1 || H > kHMax) return (int)cudaErrorInvalidValue;
-  const int grid = (rows + kRows - 1) / kRows;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    gru_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)xw, (const float*)wh, (const float*)bhn, (const float*)h0, (float*)hs,
-        steps, rows, H);
-  } else {
-    typedef __nv_bfloat16 B;
-    gru_fwd_kernel<B><<<grid, kThreads, 0, st>>>((const B*)xw, (const float*)wh,
-                                                  (const float*)bhn, (const float*)h0, (B*)hs,
-                                                  steps, rows, H);
+// The forward's launch for `rows` rows: the fewest rows per block (1, 2, 4
+// or 8) whose grid is resident all at once (blocks <= SMs x the blocks of
+// that instance an SM holds), since the T loop lives inside the kernel and a
+// second wave of blocks would run all T steps again after the first; 8 where
+// none is. Fewer rows per block spread the rows over more SMs and give each
+// SM more warps to hide a step's latency.
+int gru_fwd_plan(int dtype, int rows, int device, int* rows_per_block, int* grid,
+                 int* blocks_per_sm) {
+  int n_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  for (int rpb = 1; rpb <= 8; rpb *= 2) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fwd_kernel(dtype, rpb),
+                                                        kFwdThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (rows + rpb - 1) / rpb;
+    if (blocks <= n_sm * per_sm || rpb == 8) {
+      *rows_per_block = rpb;
+      *grid = blocks;
+      *blocks_per_sm = per_sm;
+      return (int)cudaSuccess;
+    }
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype of xw and hs: 0 = float32, 1 = bfloat16. wh, bhn, h0 are float32.
+// rows_per_block and grid come from gru_fwd_plan.
+int gru_fwd(int dtype, const void* xw, const void* wh, const void* bhn, const void* h0, void* hs,
+            int steps, int rows, int H, int rows_per_block, int grid, void* stream) {
+  if (H < 1 || H > kHMax) return (int)cudaErrorInvalidValue;
+  if (grid * rows_per_block < rows) return (int)cudaErrorInvalidValue;
+  const void* kernel = fwd_kernel(dtype, rows_per_block);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&xw, (void*)&wh, (void*)&bhn, (void*)&h0, (void*)&hs,
+                  (void*)&steps, (void*)&rows, (void*)&H};
+  cudaError_t err = cudaLaunchKernel(kernel, dim3(grid), dim3(kFwdThreads), args, 0,
+                                     (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

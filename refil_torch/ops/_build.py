@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes ``refil_torch/_build/lib<name>_<hash>.so``, a
 shared library with a plain C interface that ``ops/entity_attn.py`` loads with
-``ctypes``. The hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. All sources build in parallel, one
-``nvcc`` each. The build uses only the sources in the repository; a failed
-build raises with nvcc's output.
+``ctypes``. The hash covers the source, every header in ``csrc/`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. All sources build in parallel, one ``nvcc`` each. The build uses
+only the sources in the repository; a failed build raises with nvcc's
+output.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -46,9 +47,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library's path, named by a hash of the source, every header in
+    ``csrc/`` (any source may include any of them) and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        h.update(fname.encode())
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build_all() -> Dict[str, Built]:

@@ -20,7 +20,7 @@ Semantics:
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -102,6 +102,82 @@ def entity_attention(
             logits = logits.mean(dim=1)
         return out, logits
     return out
+
+
+class BackwardStages(NamedTuple):
+    """What ``entity_attention_backward_staged`` returns, float32."""
+    d_entities: torch.Tensor  # (B, Ne, D)
+    d_in_kernel: torch.Tensor  # (D, 3E)
+    d_out_kernel: torch.Tensor  # (E, O)
+    d_out_bias: torch.Tensor  # (O,)
+    attn: torch.Tensor  # (B, Nq, E): the recomputed attention, row_ok applied
+
+
+def entity_attention_backward_staged(
+    entities: torch.Tensor,
+    in_kernel: torch.Tensor,
+    out_kernel: torch.Tensor,
+    pre_mask: Optional[torch.Tensor],
+    post_mask: torch.Tensor,
+    g: torch.Tensor,
+    n_heads: int,
+) -> BackwardStages:
+    """The gradients of ``entity_attention`` for the output gradient ``g``,
+    computed in the stages of the CUDA backward (``csrc/entity_attn.cu``,
+    ``launch_bwd``), so that each stage has a plain counterpart:
+
+      (i)   K|V = ents W_kv over all Ne rows, Q = ents[:, :Nq] W_q over the
+            query rows only, dattn = g W_o^T;
+      (ii)  per sample: the softmax, attn, dv, the softmax VJP, dq, dk;
+      (iii) dEnts = dK|dV W_kv^T + dq W_q^T (on the query rows), dW_qkv,
+            dW_o = attn^T (g post_keep), db_o.
+
+    Every product accumulates in float32; values are rounded to the inputs'
+    dtype where ``refil_tpu/ops/pallas_attn.py:_bwd_kernel`` rounds them
+    (qkv, the softmax weights fed to products, dattn, attn, dl, dqkv)."""
+    cdt = entities.dtype
+    rnd = lambda x: x.to(cdt).float()  # noqa: E731
+    B, Ne, D = entities.shape
+    Nq = post_mask.shape[1]
+    E = in_kernel.shape[1] // 3
+    hd = E // n_heads
+    scale = 1.0 / math.sqrt(hd)
+    x, w_qkv, w_o = entities.float(), in_kernel.float(), out_kernel.float()
+    heads = lambda t: t.reshape(B, t.shape[1], n_heads, hd).transpose(1, 2)  # noqa: E731
+    merge = lambda t: t.transpose(1, 2).reshape(B, t.shape[2], E)  # noqa: E731
+
+    # (i) projections
+    kv = rnd(x @ w_qkv[:, E:])
+    q = rnd(x[:, :Nq] @ w_qkv[:, :E])
+    dattn_raw = g.to(cdt).float() @ w_o.T
+
+    # (ii) the attention's VJP, per sample
+    pm = None if pre_mask is None else pre_mask[:, :Nq]
+    row_ok = (torch.ones((B, Nq)) if pm is None else (~pm.all(-1)).float()).to(x.device)
+    post_keep = (~post_mask).float()
+    dattn = rnd(dattn_raw * (post_keep * row_ok)[..., None])
+    qh, kh, vh = heads(q), heads(kv[..., :E]), heads(kv[..., E:])
+    logits = qh @ kh.transpose(-1, -2) * scale
+    if pm is not None:
+        logits = logits.masked_fill(pm[:, None], NEG)
+    w = torch.softmax(logits, dim=-1)  # (B, H, Nq, Ne) f32
+    attn = rnd(merge(rnd(w) @ vh) * row_ok[..., None])
+    dah = heads(dattn)
+    dv = rnd(rnd(w).transpose(-1, -2) @ dah)
+    dw = dah @ vh.transpose(-1, -2)
+    dl = rnd(w * (dw - (dw * w).sum(-1, keepdim=True)))
+    dq = rnd(merge(dl @ kh) * scale)
+    dk = rnd(merge(dl.transpose(-1, -2) @ qh) * scale)
+    dkv = torch.cat([dk, merge(dv)], dim=-1)
+    gm = g.float() * post_keep[..., None]
+
+    # (iii) dEnts and the weight gradients
+    d_ents = dkv @ w_qkv[:, E:].T
+    d_ents[:, :Nq] += dq @ w_qkv[:, :E].T
+    dw_q = x[:, :Nq].reshape(-1, D).T @ dq.reshape(-1, E)
+    dw_kv = x.reshape(-1, D).T @ dkv.reshape(-1, 2 * E)
+    dw_o = attn.reshape(-1, E).T @ gm.reshape(-1, gm.shape[-1])
+    return BackwardStages(d_ents, torch.cat([dw_q, dw_kv], dim=1), dw_o, gm.sum((0, 1)), attn)
 
 
 def entity_pooling(

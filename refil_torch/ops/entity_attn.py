@@ -14,10 +14,12 @@ Weights keep the JAX layout at this interface: ``in_kernel`` (D, 3E),
 ``out_kernel`` (E, O), ``out_bias`` (O,).
 
 ``launches`` counts the kernel launches of each wrapper, so a run can show its
-main path went through the kernels. One backward launch is the per-sample
-backward kernel plus the two small kernels that form the weight gradients
-from what it wrote (tiled products over row chunks, then the chunks summed in
-order).
+main path went through the kernels. One backward launch is all the stage
+kernels of one call: the projections (``csrc/gemm.cuh``), the per-sample
+kernel, the products of dEnts and the weight gradients over row chunks, and
+the chunks summed in order. ``gemm`` launches the backward's matrix product
+alone, for its checks; the main path never calls it, so its count stays 0
+there.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from .attention import entity_attention as plain_entity_attention
 
-launches = {"entity_attn_fwd": 0, "entity_attn_bwd": 0}
+launches = {"entity_attn_fwd": 0, "entity_attn_bwd": 0, "entity_attn_gemm": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -51,8 +53,12 @@ def _lib():
         lib.entity_attn_plan.restype = i
         lib.entity_attn_fwd.argtypes = [i] + [p] * 7 + [i] * 12 + [p]
         lib.entity_attn_fwd.restype = i
-        lib.entity_attn_bwd.argtypes = [i] + [p] * 12 + [i] * 13 + [p]
+        lib.entity_attn_bwd.argtypes = [i] + [p] * 14 + [i] * 12 + [p]
         lib.entity_attn_bwd.restype = i
+        ll = ctypes.c_longlong
+        lib.entity_attn_gemm.argtypes = ([i] * 3 + [p, ll, i, i] + [p, ll] * 2 + [i] * 4
+                                         + [ll] + [i] * 4 + [p])
+        lib.entity_attn_gemm.restype = i
         lib.entity_attn_error_string.argtypes = [i]
         lib.entity_attn_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -95,9 +101,9 @@ def _validate(entities, in_kernel, out_kernel, pre_mask, post_mask, n_heads):
 
 
 class Plan(NamedTuple):
-    spb: int  # samples per block iteration
-    ks: int  # weight rows per shared-memory slice; >= max(D, E): resident
-    grid: int  # persistent blocks
+    spb: int  # samples per block (iteration of the forward's persistent blocks)
+    ks: int  # forward: weight rows per shared-memory slice; >= max(D, E): resident
+    grid: int  # blocks
     smem: int  # dynamic shared memory in bytes
     chunks: int  # row chunks of the backward's weight-gradient products
 
@@ -160,7 +166,9 @@ def kernel_backward(entities, in_kernel, out_kernel, pre_mask, post_mask, g,
         raise ValueError("entity attention backward: g must be (Bp, Nq, O) on the entities' device")
     n_w, n_wo = D * 3 * E, E * O
     dents = torch.empty((Bp, Ne, D), dtype=torch.float32, device=dev)
-    dweights = torch.zeros((n_w + n_wo + O,), dtype=torch.float32, device=dev)
+    # the chunk sum writes every element; with no rows the gradients are 0
+    dweights = (torch.empty if Bp > 0 else torch.zeros)((n_w + n_wo + O,), dtype=torch.float32,
+                                                       device=dev)
     if Bp > 0:
         lib = _lib()
         ents, wi, wo = (t.contiguous() for t in (entities, in_kernel, out_kernel))
@@ -169,22 +177,100 @@ def kernel_backward(entities, in_kernel, out_kernel, pre_mask, post_mask, g,
         qm = post_mask.contiguous()
         plan = launch_plan(True, entities.dtype, (Bp, Ne, Nq, D, E, O, n_heads), dev.index)
         f32 = dict(dtype=torch.float32, device=dev)
-        dqkv = torch.empty((Bp * Ne * 3 * E,), **f32)
-        attn = torch.empty((Bp * Nq * E,), **f32)
-        gm = torch.empty((Bp * Nq * O,), **f32)
+        q = torch.empty((Bp * Nq * E,), **f32)  # Q, then dq
+        kv = torch.empty((Bp * Ne * 2 * E,), **f32)  # K|V, then dK|dV
+        da = torch.empty((Bp * Nq * E,), **f32)  # dattn, then attn
+        gm = torch.empty((Bp * Nq * O,), **f32)  # g * post_keep
+        wt = torch.empty((3 * E * D + O * E,), dtype=entities.dtype, device=dev)  # W^T
         partials = torch.empty((plan.chunks, n_w + n_wo + O), **f32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.entity_attn_bwd(
             _DTYPES[entities.dtype], _ptr(ents), _ptr(gg), _ptr(wi), _ptr(wo), _ptr(pm),
-            _ptr(qm), _ptr(dents), _ptr(dqkv), _ptr(attn), _ptr(gm), _ptr(partials),
-            _ptr(dweights), Bp, Ne, Nq, D, E, O, n_heads, 0 if pm is None else pm.shape[1],
-            plan.spb, plan.ks, plan.grid, plan.smem, plan.chunks, stream)
+            _ptr(qm), _ptr(dents), _ptr(q), _ptr(kv), _ptr(da), _ptr(gm), _ptr(wt),
+            _ptr(partials), _ptr(dweights), Bp, Ne, Nq, D, E, O, n_heads,
+            0 if pm is None else pm.shape[1], plan.spb, plan.grid, plan.smem, plan.chunks, stream)
         _check(lib, err, "entity_attn_bwd launch")
         launches["entity_attn_bwd"] += 1
     dwqkv = dweights[:n_w].view(D, 3 * E)
     dwo = dweights[n_w:n_w + n_wo].view(E, O)
     dbo = dweights[n_w + n_wo:]
     return dents, dwqkv, dwo, dbo
+
+
+class Operand(NamedTuple):
+    """A matrix as the backward's product (``csrc/gemm.cuh``) reads it:
+    element (r, c) at ``flat[row(r) * ld + c]``, with row(r) = (r // group)
+    * stride + r % group (group = stride: plain rows; group Nq, stride Ne:
+    the first Nq of every Ne rows)."""
+    flat: torch.Tensor  # 1-d, float32 or bfloat16 (float32 for the output)
+    ld: int
+    group: int = 1
+    stride: int = 1
+
+    def rows(self, n: int) -> torch.Tensor:
+        r = torch.arange(n, device=self.flat.device)
+        return (r // self.group) * self.stride + r % self.group
+
+    def check(self, n_rows: int, n_cols: int, extra: int = 0) -> None:
+        if self.flat.dim() != 1 or not self.flat.is_contiguous():
+            raise ValueError("gemm: an operand is a contiguous 1-d tensor")
+        if n_rows and n_cols:
+            last = ((n_rows - 1) // self.group) * self.stride + (n_rows - 1) % self.group
+            if last * self.ld + n_cols + extra > self.flat.numel():
+                raise ValueError("gemm: an operand's rows reach past its tensor")
+
+    def matrix(self, n_rows: int, n_cols: int) -> torch.Tensor:
+        idx = self.rows(n_rows)[:, None] * self.ld + torch.arange(n_cols, device=self.flat.device)
+        return self.flat[idx].float()
+
+
+def plain_gemm(a: Operand, b: Operand, c: Operand, M: int, N: int, K: int, ka: bool,
+               add: bool = False, round_bf16: bool = False, chunks: int = 1,
+               chunk_stride: int = 0) -> None:
+    """The plain version of ``gemm``: the same products written into ``c``
+    the same way, by torch.matmul in float32."""
+    A = a.matrix(M, K) if ka else a.matrix(K, M).T
+    B = b.matrix(K, N)
+    for chunk in range(chunks):
+        k0, k1 = K * chunk // chunks, K * (chunk + 1) // chunks
+        val = A[:, k0:k1] @ B[k0:k1]
+        if round_bf16:
+            val = val.bfloat16().float()
+        idx = (chunk * chunk_stride + c.rows(M)[:, None] * c.ld
+               + torch.arange(N, device=c.flat.device))
+        c.flat[idx] = c.flat[idx] + val if add else val
+
+
+def gemm(a: Operand, b: Operand, c: Operand, M: int, N: int, K: int, ka: bool,
+         add: bool = False, round_bf16: bool = False, chunks: int = 1,
+         chunk_stride: int = 0) -> None:
+    """Launches the backward's matrix product alone on CUDA tensors: C (M x
+    N) = sum over k of A(m, k) B(k, n), A stored m x k where ``ka`` (else
+    k x m), B stored k x n (plain rows); chunk c of ``chunks``
+    sums its share of K into ``c`` shifted by c * ``chunk_stride``. The
+    backward launches it from C (``launch_bwd``); this entry is for its
+    checks. Takes the operand types the backward uses (see
+    ``entity_attn_gemm``)."""
+    if c.flat.dtype != torch.float32:
+        raise TypeError("gemm: the output is float32")
+    for op in (a, b, c):
+        if op.flat.dtype not in _DTYPES:
+            raise TypeError(f"gemm takes float32 or bfloat16, not {op.flat.dtype}")
+        if op.flat.device.type != "cuda" or op.flat.device != c.flat.device:
+            raise ValueError("gemm takes CUDA tensors on one device")
+    if b.group != 1 or b.stride != 1:
+        raise ValueError("gemm: B has plain rows")
+    a.check(*((M, K) if ka else (K, M)))
+    b.check(K, N)
+    c.check(M, N, (chunks - 1) * chunk_stride)
+    lib = _lib()
+    err = lib.entity_attn_gemm(
+        _DTYPES[a.flat.dtype], _DTYPES[b.flat.dtype], int(ka),
+        _ptr(a.flat), a.ld, a.group, a.stride, _ptr(b.flat), b.ld,
+        _ptr(c.flat), c.ld, c.group, c.stride, int(add), int(round_bf16), chunk_stride,
+        M, N, K, chunks, torch.cuda.current_stream(c.flat.device).cuda_stream)
+    _check(lib, err, "entity_attn_gemm launch")
+    launches["entity_attn_gemm"] += 1
 
 
 class EntityAttentionFn(torch.autograd.Function):

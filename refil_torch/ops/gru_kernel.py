@@ -20,6 +20,8 @@ db_hn in block order.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -45,7 +47,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_rows_per_block.restype = i
         lib.gru_max_hidden.restype = i
-        lib.gru_fwd.argtypes = [i] + [p] * 5 + [i] * 3 + [p]
+        lib.gru_fwd_plan.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
+        lib.gru_fwd_plan.restype = i
+        lib.gru_fwd.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
         lib.gru_fwd.restype = i
         lib.gru_bwd.argtypes = [i] + [p] * 10 + [i] * 3 + [p]
         lib.gru_bwd.restype = i
@@ -79,6 +83,22 @@ def _validate(xw, wh, bhn, h0):
     return T, R, H
 
 
+class Plan(NamedTuple):
+    rows_per_block: int  # 1, 2, 4 or 8: the forward's template instance
+    grid: int  # blocks
+    blocks_per_sm: int  # blocks of that instance one SM holds at once
+
+
+@functools.lru_cache(maxsize=64)  # a handful of row counts per run
+def launch_plan(R: int, dtype: torch.dtype, device_index: int) -> Plan:
+    """The forward's launch for R rows (``gru_fwd_plan`` in ``csrc/gru.cu``)."""
+    lib = _lib()
+    out = [ctypes.c_int() for _ in Plan._fields]
+    _check(lib, lib.gru_fwd_plan(_DTYPES[dtype], R, device_index,
+                                 *(ctypes.byref(v) for v in out)), "gru_fwd plan")
+    return Plan(*(v.value for v in out))
+
+
 def kernel_forward(xw, wh, bhn, h0) -> torch.Tensor:
     """Launches the forward kernel; returns hs (T, R, H) in ``xw``'s dtype.
     ``h0`` is read as float32."""
@@ -87,9 +107,11 @@ def kernel_forward(xw, wh, bhn, h0) -> torch.Tensor:
     if T * R == 0:
         return hs
     lib = _lib()
+    plan = launch_plan(R, xw.dtype, xw.device.index)
     x, w, b, h = xw.contiguous(), wh.contiguous(), bhn.contiguous(), h0.float().contiguous()
     err = lib.gru_fwd(_DTYPES[xw.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(),
-                      hs.data_ptr(), T, R, H, torch.cuda.current_stream(xw.device).cuda_stream)
+                      hs.data_ptr(), T, R, H, plan.rows_per_block, plan.grid,
+                      torch.cuda.current_stream(xw.device).cuda_stream)
     _check(lib, err, "gru_fwd launch")
     launches["gru_fwd"] += 1
     return hs

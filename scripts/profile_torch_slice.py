@@ -7,12 +7,23 @@
 
 Trains the slice through ``refil_torch.main`` (default
 ``--config=refil_group_matching --env-config=group_matching``, ``t_max`` 4000)
-under ``torch.profiler`` and prints JSON lines:
+and profiles a window of its training blocks with ``torch.profiler``'s
+schedule: the blocks of the first WAIT learner updates run unprofiled, the
+next WARMUP are traced and dropped, and the next ACTIVE are kept (a block
+ends where its updates end; the run needs WAIT + WARMUP + ACTIVE updates). A
+window keeps the trace small: the whole combat run is ~1.1M kernel launches,
+whose trace took longer to parse than the run. Prints JSON lines:
   * ``device``: the card's name and power limit (nvidia-smi);
-  * ``profile``: wall seconds of the run, summed device-kernel seconds, the
-    device's idle share of the wall time, the share of device time in the
-    port's own kernels (entity attention, GRU), and the number of kernels
-    launched;
+  * ``profile``: the window's wall seconds (host clock between device syncs
+    at its ends), summed device-kernel seconds, the device's idle share of
+    the wall time, the share of device time in the port's own kernels
+    (entity attention with its backward's matrix product, GRU), and the
+    number of kernels launched (the run's env-steps/s are not printed: the
+    trace is parsed inside a training block; ``chip_smoke.py`` measures
+    them unprofiled);
+  * ``bwd_stages``: the device seconds of each stage of the entity-attention
+    backward in the window (its kernels run in a fixed order on one stream,
+    so the n-th kernel of each call is stage n);
   * ``top``: the device kernels with the most time (name, calls, seconds).
 The ``k=v`` arguments are config overrides, as after ``with`` on the CLI.
 Needs a CUDA device; exits non-zero without one.
@@ -28,6 +39,16 @@ import time
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+WAIT, WARMUP, ACTIVE = 1, 1, 3  # learner updates (training blocks)
+# the entity-attention backward's kernels in launch order (csrc/entity_attn.cu,
+# launch_bwd), each with a piece of its kernel's name
+BWD_STAGES = (("i_proj_kv", "gemm_kernel"), ("i_proj_q", "gemm_kernel"),
+              ("i_dattn", "gemm_kernel"), ("ii_per_sample", "entity_attn_bwd_sample"),
+              ("iii_dents_kv", "gemm_kernel"), ("iii_dents_q", "gemm_kernel"),
+              ("iii_dw_kv", "gemm_kernel"), ("iii_dw_q", "gemm_kernel"),
+              ("iii_dw_o", "gemm_kernel"), ("iii_db_o", "entity_attn_colsum"),
+              ("iii_chunk_sum", "entity_attn_reduce"))
 
 
 def parse(argv):
@@ -46,6 +67,24 @@ def parse(argv):
     return alg, env, t_max, overrides
 
 
+def bwd_stage_seconds(kernels):
+    """Device seconds per backward stage from (start_us, name, us) in time
+    order; None where the backward's kernels do not fall into whole calls of
+    the expected sequence."""
+    names = tuple(tag for _, tag in BWD_STAGES)
+    seq = [(n, us) for _, n, us in kernels if any(tag in n for tag in names)]
+    if not seq or len(seq) % len(BWD_STAGES):
+        return None
+    out = {stage: 0.0 for stage, _ in BWD_STAGES}
+    for i, (name, us) in enumerate(seq):
+        stage, tag = BWD_STAGES[i % len(BWD_STAGES)]
+        if tag not in name:
+            return None
+        out[stage] += us / 1e6
+    out["calls"] = len(seq) // len(BWD_STAGES)
+    return out
+
+
 def main(argv) -> None:
     alg, env, t_max, overrides = parse(argv)
     if not torch.cuda.is_available():
@@ -57,6 +96,7 @@ def main(argv) -> None:
     print(json.dumps({"device": smi}), flush=True)
 
     from refil_torch import main as tmain
+    from refil_torch.learners.q_learner import QLearner
     from refil_torch.ops import _build
 
     _build.build_all()  # the build is set-up, outside the profiled window
@@ -64,38 +104,58 @@ def main(argv) -> None:
     cli = [f"--config={alg}", f"--env-config={env}", "with", f"t_max={t_max}",
            f"local_results_path={out_dir}", *overrides]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    window = {}
+
+    def keep(prof):  # called once, when the ACTIVE updates have been traced
+        window["kernels"] = sorted(
+            (e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+    prof = torch.profiler.profile(
+        activities=acts, on_trace_ready=keep,
+        schedule=torch.profiler.schedule(wait=WAIT, warmup=WARMUP, active=ACTIVE, repeat=1))
+    marks = []  # host clock after each update's device work
+    train_iters = QLearner.train_iters
+
+    def traced_train_iters(self, *args, **kwargs):
+        metrics = train_iters(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        prof.step()
+        return metrics
+
+    QLearner.train_iters = traced_train_iters
+    with prof:
         summary = tmain.main(cli)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    # device kernels only: user annotations (e.g. "Optimizer.step#...") also
-    # carry the CUDA device type and overlap the kernels they span
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    dev_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if "kernels" not in window:
+        raise SystemExit(f"profile_torch_slice: {summary['updates']} learner updates ran; the "
+                         f"window needs {WAIT + WARMUP + ACTIVE} (raise t_max)")
+    first = WAIT + WARMUP
+    wall = marks[first + ACTIVE - 1] - marks[first - 1]
+    kernels = window["kernels"]
+    dev_us = sum(us for _, _, us in kernels)
     by_name = {}
-    for e in kernels:
-        calls, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    for _, name, us in kernels:
+        calls, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (calls + 1, total + us)
 
-    def share(tag):
-        us = sum(us for name, (_, us) in by_name.items() if tag in name)
+    def share(*tags):
+        us = sum(t for name, (_, t) in by_name.items() if any(tag in name for tag in tags))
         return us / dev_us if dev_us else None
 
     print(json.dumps({"profile": {
         "card": smi, "command": "python -m refil_torch.main " + " ".join(cli),
-        "wall_seconds": wall, "env_steps_per_s_train_blocks": summary["env_steps_per_s"],
-        "updates": summary["updates"], "iterations": summary["iterations"],
-        "blocks": summary["blocks"], "test_blocks": summary["test_blocks"],
+        "window_updates": ACTIVE, "window_wall_seconds": wall,
         "device_kernel_seconds": dev_us / 1e6,
         "device_idle_share": 1.0 - dev_us / 1e6 / wall,
-        "entity_attn_share_of_device_time": share("entity_attn"),
+        "entity_attn_share_of_device_time": share("entity_attn", "gemm_kernel"),
         "gru_share_of_device_time": share("gru_"),
         "kernel_launches": len(kernels),
+        "run_updates": summary["updates"], "run_blocks": summary["blocks"],
     }}), flush=True)
+    print(json.dumps({"bwd_stages": bwd_stage_seconds(kernels)}), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps({"top": [{"name": n[:120], "calls": c, "seconds": us / 1e6}
                               for n, (c, us) in top]}), flush=True)
@@ -103,7 +163,7 @@ def main(argv) -> None:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
-    # freeing the profiler's event tree (~1M events for the combat slice)
-    # takes minutes at interpreter exit; everything is printed by now
+    # freeing the profiler's event tree takes long at interpreter exit;
+    # everything is printed by now
     sys.stdout.flush()
     os._exit(0)
