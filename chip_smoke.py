@@ -15,14 +15,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      shape of the Group Matching slice and of the combat slice (plus an
      Nq < Ne case with a fully blocked row, a post-masked row, no pre-mask,
      and batches that are not a multiple of the block's samples, one of them
-     at the combat widths), each backward also held to the plain version of
-     its stages (``entity_attention_backward_staged``) and called twice for
-     identical bits;
-     the GRU forward and backward at every shape of the combat slice, a
-     ragged one, and a sweep of R and T across the forward's rows-per-block
-     plan; the backward's matrix product alone at the backward's shapes and
-     at ragged ones; and (after the slices, 4 and 5) a profile of one
-     backward call, which must run only the repository's kernels. Times by
+     at the combat widths), each also held to the plain version of its
+     stages (``entity_attention_forward_staged``,
+     ``entity_attention_backward_staged``) and called twice for identical
+     bits; the GRU forward and backward at every shape of the combat slice,
+     a ragged one, and a sweep of R and T across the rows-per-block plans,
+     the backward also held to the plain version of its stages
+     (``gru_backward_staged``) and called twice for identical bits; the
+     attention's matrix product alone at the shapes both directions give it
+     (the forward's output product with its bias, post-mask and bfloat16
+     store) and at ragged ones; and (after the slices, 4 and 5) a profile
+     of one attention forward, one attention backward and one GRU backward
+     call, which must run only the repository's kernels. Times by
      CUDA events after warm-up: the kernel, the plain version and a PyTorch
      yardstick (attention: matmul + scaled_dot_product_attention; GRU:
      cuDNN ``torch.nn.GRU``, beside the hoisted input matmul plus the
@@ -143,8 +147,7 @@ def library_attention(ents, wi, wo, bo, pre_mask, post_mask, n_heads):
 def cost(Bp, Ne, Nq, D, E, O, dtype, pre: bool, bwd: bool):
     """(bytes, flops) the function needs: each input read once, each output
     written once; multiply-adds count 2 operations. K and V are projected
-    for all Ne rows, Q only for the Nq rows that query (the forward kernel
-    projects Q for all Ne rows; that extra work is not counted)."""
+    for all Ne rows, Q only for the Nq rows that query, as the kernels do."""
     b = torch.tensor([], dtype=dtype).element_size()
     weights = (D * 3 * E + E * O + O) * b
     masks = Bp * Nq * (Ne if pre else 0) + Bp * Nq
@@ -267,9 +270,11 @@ def phase_build():
 
     for R in GRU_PLAN_ROWS:
         for dtype in (torch.float32, torch.bfloat16):
-            plan = gru_kernel.launch_plan(R, dtype, torch.cuda.current_device())
-            emit("launch_plan", kernel="gru_fwd", R=R, dtype=str(dtype).replace("torch.", ""),
-                 **plan._asdict())
+            for bwd in (False, True):
+                plan = gru_kernel.launch_plan(bwd, 151, R, GRU_HIDDEN, dtype,
+                                              torch.cuda.current_device())
+                emit("launch_plan", kernel="gru_bwd" if bwd else "gru_fwd", T=151, R=R,
+                     dtype=str(dtype).replace("torch.", ""), **plan._asdict())
     return built
 
 
@@ -278,13 +283,18 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
     from refil_torch.ops import entity_attn
     from refil_torch.ops.attention import entity_attention as plain
     from refil_torch.ops.attention import entity_attention_backward_staged as staged
+    from refil_torch.ops.attention import entity_attention_forward_staged as staged_fwd
 
     ents, wi, wo, bo, pm, qm, gout = make_inputs(Bp, Ne, Nq, D, E, O, dtype, seed, pre,
                                                  mask_rows)
     out_k = entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, H)
+    out_k2 = entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, H)
     out_p = plain(ents, wi, wo, bo, pm, qm, H)
+    out_s = staged_fwd(ents, wi, wo, bo, pm, qm, H).out
     torch.cuda.synchronize()
     fwd_err = max_err(out_k, out_p)
+    fwd_stage_err = max_err(out_k, out_s)
+    fwd_same_bits = torch.equal(out_k, out_k2)
     if pm is not None:
         # a fully blocked row attends to nothing: its output is exactly the bias
         blocked = pm[:, :Nq].all(-1)
@@ -312,10 +322,11 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
     row = dict(kernel="entity_attn", path=path, case=tag, Bp=Bp, Ne=Ne, Nq=Nq, D=D, E=E, O=O,
                heads=H, mask_rows=mask_rows or Nq,
                dtype=str(dtype).replace("torch.", ""), pre_mask=pre,
-               fwd_max_abs_err=fwd_err, fwd_tol=tol_f, bwd_scaled_err=bwd_err, bwd_tol=tol_b,
+               fwd_max_abs_err=fwd_err, fwd_vs_stages_max_abs_err=fwd_stage_err, fwd_tol=tol_f,
+               fwd_two_calls_same_bits=fwd_same_bits, bwd_scaled_err=bwd_err, bwd_tol=tol_b,
                bwd_max_abs_err=max(max_err(a, b) for a, b in zip(grads_k, grads_p)),
                bwd_vs_stages_scaled_err=stage_err, bwd_two_calls_same_bits=same_bits)
-    ok = (fwd_err <= tol_f and same_bits
+    ok = (fwd_err <= tol_f and fwd_stage_err <= tol_f and fwd_same_bits and same_bits
           and all(v <= tol_b for v in (*bwd_err.values(), *stage_err.values())))
 
     if timing:
@@ -347,15 +358,17 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
 
 
 def check_gemm(tag, ta, tb, ka, M, N, K, a_map=(1, 1), c_map=(1, 1), add=False,
-               rnd=False, chunks=1, pad=0, seed=0, timing=False):
-    """The backward's matrix product (csrc/gemm.cuh) alone against its plain
-    version: random operands laid out as the backward lays them (row maps,
-    leading dimensions ``pad`` elements wider than the matrix, which takes
-    the element-by-element copy where a row is not 16-byte aligned), a
-    random output buffer, so that what the product must not touch is held
-    too. f32 sums within 1e-5 of the output's scale where K <= 1024, 1e-4
-    for the tall K of the weight gradients; 2e-2 where the output is rounded
-    to bfloat16."""
+               rnd=False, chunks=1, pad=0, seed=0, timing=False, tc=torch.float32,
+               epilogue=False):
+    """The attention's matrix product (csrc/gemm.cuh) alone against its plain
+    version: random operands laid out as the forward and backward lay them
+    (row maps, leading dimensions ``pad`` elements wider than the matrix,
+    which takes the element-by-element copy where a row is not 16-byte
+    aligned), a random output buffer of type ``tc``, so that what the
+    product must not touch is held too; ``epilogue``: a random bias and
+    dropped rows, as the forward's output product has. f32 sums within 1e-5
+    of the output's scale where K <= 1024, 1e-4 for the tall K of the weight
+    gradients; 2e-2 where the output is rounded to bfloat16."""
     from refil_torch.ops import entity_attn as ea
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -369,21 +382,24 @@ def check_gemm(tag, ta, tb, ka, M, N, K, a_map=(1, 1), c_map=(1, 1), add=False,
 
     a = operand(ta, *((M, K) if ka else (K, M)), a_map)
     b = operand(tb, K, N, (1, 1))
-    c0 = operand(torch.float32, M, N, c_map)
+    c0 = operand(tc, M, N, c_map)
     chunk_stride = c0.flat.numel() if chunks > 1 else 0
-    c_flat = torch.randn((c0.flat.numel() * chunks,), generator=g, device="cuda")
+    c_flat = torch.randn((c0.flat.numel() * chunks,), generator=g, device="cuda").to(tc)
     c_k = c0._replace(flat=c_flat.clone())
     c_p = c0._replace(flat=c_flat.clone())
     kw = dict(add=add, round_bf16=rnd, chunks=chunks, chunk_stride=chunk_stride)
+    if epilogue:
+        kw["bias"] = torch.randn((N,), generator=g, device="cuda").to(tc)
+        kw["drop"] = torch.rand((M,), generator=g, device="cuda") < 0.1
     ea.gemm(a, b, c_k, M, N, K, ka, **kw)
     ea.plain_gemm(a, b, c_p, M, N, K, ka, **kw)
     torch.cuda.synchronize()
     err = scaled_err(c_k.flat, c_p.flat)
-    tol = 2e-2 if rnd else (1e-5 if K <= 1024 else 1e-4)
+    tol = 2e-2 if rnd or tc == torch.bfloat16 else (1e-5 if K <= 1024 else 1e-4)
     row = dict(kernel="entity_attn_gemm", case=tag, A=str(ta).replace("torch.", ""),
-               B=str(tb).replace("torch.", ""), ka=ka, M=M, N=N, K=K, a_map=a_map,
-               c_map=c_map, add=add, round_bf16=rnd, chunks=chunks, pad=pad, scaled_err=err,
-               tol=tol)
+               B=str(tb).replace("torch.", ""), C=str(tc).replace("torch.", ""), ka=ka, M=M,
+               N=N, K=K, a_map=a_map, c_map=c_map, add=add, round_bf16=rnd, chunks=chunks,
+               pad=pad, epilogue=epilogue, scaled_err=err, tol=tol)
     if timing:
         ms = cuda_time_ms(lambda: ea.gemm(a, b, c_k, M, N, K, ka, **kw))
         A = a.flat.view(-1, a.ld)[:, :K] if ka else a.flat.view(-1, a.ld)[:, :M].T
@@ -398,9 +414,11 @@ def check_gemm(tag, ta, tb, ka, M, N, K, a_map=(1, 1), c_map=(1, 1), add=False,
 
 
 def phase_gemm():
-    """The product at each of the backward's shapes for the combat target
-    agent's call (Bp 4,832, Ne 16, Nq 8, widths 128), in the layouts, types,
-    row maps and epilogues the backward gives it, then ragged M, N, K."""
+    """The product at each of the forward's and the backward's shapes for
+    the combat target agent's call (Bp 4,832, Ne 16, Nq 8, widths 128), in
+    the layouts, types, row maps and epilogues they give it, at a Group
+    Matching shape that takes 64-row tiles, then ragged M, N, K (32- and
+    64-row tiles)."""
     f32, b16 = torch.float32, torch.bfloat16
     Bp, Ne, Nq, W = 4832, 16, 8, 128
     re_, rq, sel = Bp * Ne, Bp * Nq, (Nq, Ne)
@@ -420,6 +438,14 @@ def phase_gemm():
             ta, tb, ka, M, N, K, a_map, c_map, add, r, chunks = case
             check_gemm(tag, ta, tb, ka, M, N, K, a_map, c_map, add, r, chunks, seed=40 + i,
                        timing=(T == f32 and tag == "kv"))
+        # Group Matching's target-agent K|V projection (Bp 1,632, widths
+        # 64): too few 128-row tiles for the SMs, so 64-row tiles
+        check_gemm("kv_gm_target", T, T, True, 1632 * 8, 128, 64, rnd=rnd, seed=49)
+        # the forward's output product: attn (f32) W_o + b_o, post-masked
+        # rows 0, stored in the inputs' type
+        check_gemm("fwd_out", f32, T, True, rq, W, W, seed=50, tc=T, epilogue=True)
+        check_gemm("fwd_out_ragged", f32, T, True, 37, 45, 23, pad=3, seed=51, tc=T,
+                   epilogue=True)
         for i, (ta, tb, ka) in enumerate([(T, T, True), (f32, T, True), (T, f32, False),
                                           (f32, f32, False)]):
             for pad in (0, 3):
@@ -428,28 +454,42 @@ def phase_gemm():
                            pad=pad, seed=60 + 2 * i + pad)
 
 
-def backward_runs_only_own_kernels(Bp=4832, Ne=16, Nq=8, W=128):
-    """Profiles one float32 backward call at a combat shape: every device
-    kernel it runs must be one of csrc/'s (entity_attn*, gemm_kernel), no
-    cuBLAS, SDPA or PyTorch kernel. Returns the per-kernel device times."""
-    from refil_torch.ops import entity_attn
+def own_kernels_only(Bp=4832, Ne=16, Nq=8, W=128, T=151, R=768):
+    """Profiles one float32 call each of the attention forward and backward
+    at a combat shape and of the GRU backward at the agent's: every device
+    kernel each runs must be one of csrc/'s (entity_attn*, gru_*, the
+    product gemm.cuh), no cuBLAS, SDPA or PyTorch kernel. Prints the
+    per-kernel device times of each call, in launch order (its stages)."""
+    from refil_torch.ops import entity_attn, gru_kernel
 
-    ents, wi, wo, _, pm, qm, gout = make_inputs(Bp, Ne, Nq, W, W, W, torch.float32, 7,
-                                                mask_rows=Ne)
-    entity_attn.kernel_backward(ents, wi, wo, pm, qm, gout, HEADS)
-    torch.cuda.synchronize()
+    ents, wi, wo, bo, pm, qm, gout = make_inputs(Bp, Ne, Nq, W, W, W, torch.float32, 7,
+                                                 mask_rows=Ne)
+    xs, wx, bx, wh, bhn, h0, g = make_gru_inputs(T, R, GRU_HIDDEN, torch.float32, 8)
+    xw = (torch.matmul(xs, wx) + bx).transpose(0, 1).contiguous()
+    hs = gru_kernel.kernel_forward(xw, wh, bhn, h0)
+    calls = {
+        "entity_attn_fwd": lambda: entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, HEADS),
+        "entity_attn_bwd": lambda: entity_attn.kernel_backward(ents, wi, wo, pm, qm, gout,
+                                                               HEADS),
+        "gru_bwd": lambda: gru_kernel.kernel_backward(xw, hs, h0, wh, bhn, g),
+    }
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        entity_attn.kernel_backward(ents, wi, wo, pm, qm, gout, HEADS)
+    for name, call in calls.items():
+        call()
         torch.cuda.synchronize()
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    foreign = sorted({n for n, _ in kernels if "entity_attn" not in n and "gemm_kernel" not in n})
-    emit("backward_kernels", Bp=Bp, kernels=[{"name": n[:90], "us": us} for n, us in kernels],
-         foreign=foreign, traced=bool(kernels))
-    if foreign:
-        raise AssertionError(f"the backward ran kernels that are not the repository's: {foreign}")
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                         for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False))
+        foreign = sorted({n for _, n, _ in kernels
+                          if not any(tag in n for tag in ("entity_attn", "gru_", "gemm_kernel"))})
+        emit("own_kernels", call=name, kernels=[{"name": n[:90], "us": us} for _, n, us in kernels],
+             device_us=sum(us for _, _, us in kernels), foreign=foreign, traced=bool(kernels))
+        if foreign:
+            raise AssertionError(f"{name} ran kernels that are not the repository's: {foreign}")
 
 
 def make_gru_inputs(T, R, H, dtype, seed):
@@ -480,6 +520,7 @@ def library_gru(xs, wi, bi, wh, bhn, h0):
 
 def check_gru(tag, T, R, H, dtype, seed=0, timing=False):
     from refil_torch.ops import gru_kernel
+    from refil_torch.ops.gru import gru_backward_staged as staged
     from refil_torch.ops.gru import gru_sequence as plain
 
     xs, wi, bi, wh, bhn, h0, gout = make_gru_inputs(T, R, H, dtype, seed)
@@ -491,19 +532,27 @@ def check_gru(tag, T, R, H, dtype, seed=0, timing=False):
     fwd_err = max_err(hs_k, hs_p)
     if not torch.isfinite(hs_k.float()).all():
         raise AssertionError(f"gru {tag}: forward kernel gave a non-finite value")
+    # backward: kernel vs autograd of the plain version and vs the plain
+    # version of its stages; a second call must give the same bits
     grads_k = gru_kernel.kernel_backward(xw, hs_k, h0, wh, bhn, gout)
+    grads_k2 = gru_kernel.kernel_backward(xw, hs_k, h0, wh, bhn, gout)
     leaves = [t.detach().clone().requires_grad_(True) for t in (xw, wh, bhn, h0)]
     out_ref = plain(*leaves)
     grads_p = torch.autograd.grad(out_ref, leaves, gout, retain_graph=True)
+    grads_s = staged(xw, hs_k, h0, wh, bhn, gout)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(grads_k, grads_k2))
     names = ("d_xw", "d_wh", "d_bhn", "d_h0")
     bwd_err = {n: scaled_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    stage_err = {n: scaled_err(a, b) for n, a, b in zip(names, grads_k, grads_s)}
     tol_f, tol_b = TOL["fwd"][dtype], TOL["bwd"][dtype]
     row = dict(kernel="gru", path="combat", case=tag, T=T, R=R, H=H,
                dtype=str(dtype).replace("torch.", ""), fwd_max_abs_err=fwd_err, fwd_tol=tol_f,
                bwd_scaled_err=bwd_err, bwd_tol=tol_b,
-               bwd_max_abs_err=max(max_err(a, b) for a, b in zip(grads_k, grads_p)))
-    ok = fwd_err <= tol_f and all(v <= tol_b for v in bwd_err.values())
+               bwd_max_abs_err=max(max_err(a, b) for a, b in zip(grads_k, grads_p)),
+               bwd_vs_stages_scaled_err=stage_err, bwd_two_calls_same_bits=same_bits)
+    ok = (fwd_err <= tol_f and same_bits
+          and all(v <= tol_b for v in (*bwd_err.values(), *stage_err.values())))
     if timing:
         ms = {
             "fwd": cuda_time_ms(lambda: gru_kernel.kernel_forward(xw, wh, bhn, h0)),
@@ -699,7 +748,7 @@ def main(argv) -> None:
                     "combat": phase_combat(name_power)}
     # last: once torch.profiler has run in a process, every later kernel
     # launch there is slower, and the slices' env-steps/s would show it
-    backward_runs_only_own_kernels()
+    own_kernels_only()
     if kernels_only:
         return
     print(name_power, flush=True)

@@ -1,9 +1,11 @@
 // Masked entity attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of refil_tpu/ops/pallas_attn.py:
-//   * entity_attn_fwd_kernel <- _kernel     (pallas_attn.py:87-131)
-//   * the backward <- _bwd_kernel (pallas_attn.py:224-321), in stages:
-//     the register-tiled matrix product of gemm.cuh for every projection,
+//   * the forward <- _kernel (pallas_attn.py:87-131), in stages: the
+//     register-tiled matrix product of gemm.cuh for the projections and
+//     entity_attn_fwd_sample_kernel for the attention itself;
+//   * the backward <- _bwd_kernel (pallas_attn.py:224-321), in stages: the
+//     same product for every projection and gradient,
 //     entity_attn_bwd_sample_kernel for the attention's own VJP, and
 //     entity_attn_colsum_kernel and entity_attn_reduce_kernel, which sum
 //     db_o and the weight gradients' chunks in a fixed order.
@@ -21,52 +23,36 @@
 //
 // Types: T = float or __nv_bfloat16 inputs. Every product accumulates in f32
 // and the softmax is f32. The values the TPU kernel rounds to the input type
-// (qkv, the softmax weights fed to w@v, attn, g, dqkv, dl) are rounded here at
-// the same points, so bf16 results follow the same rounding path.
+// (qkv, the softmax weights fed to w@v, attn, out, g, dqkv, dl) are rounded
+// here at the same points, so bf16 results follow the same rounding path.
 //
 // What bounds it on an H100: a sample reads Ne*D inputs and writes Nq*O
-// outputs but does ~2*Ne*D*3E + 2*Nq*E*O multiply-adds for the projections
-// (~95% of its arithmetic): at the combat widths (Ne 16, Nq 8, D = E = O =
-// 128) ~1.9 MFLOP against ~12 KB, ~150 FLOP per byte; at f32 outside the
-// tensor cores (67 TFLOP/s vs 3.35 TB/s, ~20 FLOP/byte) the arithmetic
-// bounds it at every width the repository uses. The forward projects Q for
-// all Ne rows though only the first Nq are read: at Ne 16, Nq 8 a sixth of
-// its projection work is not needed (and not counted in the bound); the
-// backward projects Q, and forms dq's products, over the Nq rows only.
+// outputs but does ~2*Ne*D*2E + 2*Nq*D*E + 2*Nq*E*O multiply-adds for the
+// projections (~95% of its arithmetic): at the combat widths (Ne 16, Nq 8,
+// D = E = O = 128) ~1.6 MFLOP against ~12 KB, ~130 FLOP per byte; at f32
+// outside the tensor cores (67 TFLOP/s vs 3.35 TB/s, ~20 FLOP/byte) the
+// arithmetic bounds it at every width the repository uses. Q, and in the
+// backward dq's products, are formed over the Nq query rows only.
 //
-// Forward design (a simple one that is right first; tensor cores are later
-// work):
-//   * Persistent grid: each block walks groups of `spb` samples. Everything
-//     of a group (entities, qkv, softmax weights, attn) lives in shared
-//     memory. Ne is small, so the (Nq, Ne) score tiles are plain loops.
-//   * Weights: W_qkv (D x 3E) and W_o (E x O) are read in slices of `ks`
-//     rows through two rings of two slots in shared memory; slice s+1 is in
-//     flight (cp.async) while slice s is multiplied. Each slice serves every
-//     sample of the group, and the weights stay hot in L2 across groups. At
-//     the Group Matching widths (64) both matrices fit at once: the plan
-//     then makes each ring one slot of all rows, loaded once per block
-//     (resident). At the combat widths (128; 262 KB of f32 weights, more
-//     than the 227 KB a block may have) they stream.
-//   * A slice of W_qkv or W_o rows is a K-slice of qkv = x @ W_qkv and
-//     out = attn @ W_o.
-//   * The products go through tile_gemm: each thread keeps a 4 x 2..6 tile
-//     of the result in registers, so one shared-memory load feeds 2-4 FMAs;
-//     the score loop, which would send a warp to one bank (a stride of 3E),
-//     starts each thread at a rotated offset. Over streamed K-slices, stream_gemm
-//     keeps each thread's partial sums (up to 4 tiles) in registers from the
-//     first slice to the last. Resident and streamed are separate kernel
-//     instances, so the streamed one's ~200 registers do not cut the
-//     resident one's occupancy.
-// Backward design (launch_bwd): a per-sample kernel that recomputed qkv and
-// formed dattn re-read W_qkv and W_o for every few samples, so each weight
-// value fetched served a few dozen rows. The backward instead runs in three
-// stages, each with high operand reuse:
-//   (i)   the projections over all samples' rows at once, in gemm.cuh's
-//         128-row register-tiled product: K|V = ents W_kv (Bp*Ne rows),
-//         Q = ents[:, :Nq] W_q (Bp*Nq rows, addressed by stride) and
-//         dattn = g W_o^T, rounded in their epilogue as the TPU rounds qkv
-//         (W_qkv^T and W_o^T are written once per call by
-//         entity_attn_transpose_kernel, so every product reads B row-major);
+// Why stages: a kernel that walked groups of samples and streamed W_qkv and
+// W_o through shared memory (262 KB of f32 weights at width 128, more than
+// a block may hold) re-read the weights for every few samples and kept
+// ~200 registers of partial sums, one block per SM: 9 TFLOP/s. Over all
+// samples' rows at once every weight value fetched serves 128 rows, and the
+// attention itself needs no weights.
+// Forward design (launch_fwd):
+//   (i)   K|V = ents W_kv (Bp*Ne rows) and Q = ents[:, :Nq] W_q (Bp*Nq
+//         rows, addressed by gemm.cuh's row map), rounded in the epilogue
+//         where the TPU rounds qkv;
+//   (ii)  entity_attn_fwd_sample_kernel, a warp per (sample, head), no
+//         weights: the scores, the f32 softmax and attn = round(w) v * row_ok,
+//         rounded, written over Q;
+//   (iii) out = attn W_o, whose epilogue adds b_o, zeroes the post-masked
+//         rows and stores in the input type.
+// Backward design (launch_bwd):
+//   (i)   the same projections, and dattn = g W_o^T (W_qkv^T and W_o^T are
+//         written once per call by entity_attn_transpose_kernel, so every
+//         product reads B row-major);
 //   (ii)  entity_attn_bwd_sample_kernel, a warp per (sample, head) and no
 //         weights: the scores, softmax, attn, dv, the softmax VJP, dq, dk;
 //   (iii) the same product for dEnts = dK|dV W_kv^T + dq W_q^T (the second
@@ -77,9 +63,10 @@
 //         db_o's chunks by entity_attn_colsum_kernel, and
 //         entity_attn_reduce_kernel sums every chunk in order.
 // No atomics: two runs give the same bits. The f32 scratch (at Bp 14,496,
-// Ne 16, Nq 8, E = O = 128): K|V 237 MB, Q 59 MB, dattn 59 MB and g
-// post_keep 59 MB, stage (ii) writing dK|dV, dq and attn over the first
-// three; the chunk partials 69 MB; the transposed weights 0.26 MB.
+// Ne 16, Nq 8, E = O = 128): forward K|V 237 MB and Q (then attn) 59 MB;
+// backward K|V 237 MB, Q 59 MB, dattn 59 MB and g post_keep 59 MB, stage
+// (ii) writing dK|dV, dq and attn over the first three; the chunk partials
+// 69 MB; the transposed weights 0.26 MB.
 //
 // Interface: plain C (extern "C"), loaded with ctypes. The wrapper allocates
 // every output and scratch buffer; each launcher enqueues on the stream it is
@@ -95,6 +82,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e9f;
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory a launch may take unasked
 
 template <typename T>
 struct Num;
@@ -102,392 +90,53 @@ struct Num;
 template <>
 struct Num<float> {
   __device__ static float to_f(float x) { return x; }
-  __device__ static float from_f(float x) { return x; }
   __device__ static float round(float x) { return x; }
 };
 
 template <>
 struct Num<__nv_bfloat16> {
   __device__ static float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static __nv_bfloat16 from_f(float x) { return __float2bfloat16(x); }
   __device__ static float round(float x) { return __bfloat162float(__float2bfloat16(x)); }
 };
 
 struct Dims {
   int bp, ne, nq, d, e, o, h;
   int mask_rows;  // rows of the pre-mask per sample (>= nq); 0 = no pre-mask
-  int spb;        // samples per block iteration
-  int ks;         // weight rows per slice; >= max(d, e) = resident
+  int spb;        // samples per block of the per-sample kernels
   float scale;
 };
 
-__host__ __device__ inline bool resident(const Dims& d) { return d.ks >= d.d && d.ks >= d.e; }
-
-// Shared-memory layout: the two weight rings (elements of T), then f32
-// regions. Offsets of the rings in bytes, of the rest in floats from `f0`.
-struct Layout {
-  size_t ring_q, ring_o, slot_q, slot_o;  // bytes
-  size_t f0;                              // bytes where the f32 regions start
-  size_t bo, x, qkv, p, a, rowok, post, mask;
-  size_t fwd_bytes;
-};
-
-__host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
-
-__host__ __device__ inline Layout make_layout(const Dims& d, size_t elem) {
-  Layout L;
-  const size_t c3 = 3 * (size_t)d.e, s = d.spb;
-  const bool res = resident(d);
-  const int slots = res ? 1 : 2;
-  L.slot_q = align16((size_t)(res ? d.d : d.ks) * c3 * elem);
-  L.slot_o = align16((size_t)(res ? d.e : d.ks) * d.o * elem);
-  L.ring_q = 0;
-  L.ring_o = slots * L.slot_q;
-  L.f0 = L.ring_o + slots * L.slot_o;
-  size_t off = 0;
-  L.bo = off;    off += d.o;
-  L.x = off;     off += s * d.ne * d.d;
-  L.qkv = off;   off += s * d.ne * c3;
-  L.p = off;     off += s * d.h * d.nq * d.ne;
-  L.a = off;     off += s * d.nq * d.e;
-  L.rowok = off; off += s * d.nq;
-  L.post = off;  off += s * d.nq;
-  L.mask = off;  off += s * d.nq * d.ne;
-  L.fwd_bytes = L.f0 + off * sizeof(float);
-  return L;
-}
-
-// Shared memory of one warp of the backward's per-sample kernel, which takes
-// one (sample, head), in floats: q_h, k_h, v_h and dattn_h, their rows
-// padded (to hd + 4 floats where hd is a multiple of 4, so rows stay 16-byte
+// Shared memory of one warp of a per-sample kernel, which takes one (sample,
+// head), in floats: q_h, k_h, v_h and (backward) dattn_h, their rows padded
+// (to hd + 4 floats where hd is a multiple of 4, so rows stay 16-byte
 // aligned for cp.async and eight lanes reading four floats each of eight
-// rows hit distinct banks; else hd + 1), the softmax weights, dl and the
-// pre-mask (Nq x Ne each), row_ok and post_keep.
+// rows hit distinct banks; else hd + 1), the softmax weights, (backward) dl,
+// the pre-mask (Nq x Ne each), row_ok and (backward) post_keep.
 struct WarpLayout {
   int hdp, q, k, v, da, w, dl, mask, rowok, post, floats;
 };
 
-__host__ __device__ inline WarpLayout make_warp_layout(const Dims& d) {
+__host__ __device__ inline WarpLayout make_warp_layout(const Dims& d, bool bwd) {
   WarpLayout L;
-  const int hd = d.e / d.h;
+  const int hd = d.e / d.h, b = bwd ? 1 : 0;
   L.hdp = hd % 4 == 0 ? hd + 4 : hd + 1;
   int off = 0;
   L.q = off;     off += d.nq * L.hdp;
   L.k = off;     off += d.ne * L.hdp;
   L.v = off;     off += d.ne * L.hdp;
-  L.da = off;    off += d.nq * L.hdp;
+  L.da = off;    off += b * d.nq * L.hdp;
   L.w = off;     off += d.nq * d.ne;
-  L.dl = off;    off += d.nq * d.ne;
+  L.dl = off;    off += b * d.nq * d.ne;
   L.mask = off;  off += d.nq * d.ne;
   L.rowok = off; off += d.nq;
-  L.post = off;  off += d.nq;
+  L.post = off;  off += b * d.nq;
   L.floats = (off + 3) / 4 * 4;  // the next warp's slice 16-byte aligned
   return L;
 }
 
-// the per-sample kernel's block: H warps for each of its spb samples
-inline size_t bwd_sample_smem(const Dims& d) {
-  return (size_t)make_warp_layout(d).floats * sizeof(float) * d.h * d.spb;
-}
-
-// n elements from global src to shared dst: 16-byte cp.async where both
-// ends are 16-byte aligned and the size is a multiple of 16 bytes, else a
-// plain copy (visible after the next __syncthreads).
-template <typename T>
-__device__ void copy_to_shared(T* dst, const T* src, int n) {
-  const size_t bytes = (size_t)n * sizeof(T);
-  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0 && bytes % 16 == 0) {
-    const int n16 = (int)(bytes / 16);
-    for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-      const unsigned s = (unsigned)__cvta_generic_to_shared(reinterpret_cast<char*>(dst) + 16 * i);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                   "l"(reinterpret_cast<const char*>(src) + 16 * i));
-    }
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// Walks the rows [0, K) of W (K x N, row-major) in slices of `ks` rows
-// through `ring` (two slots of `slot` bytes; one slot of all rows when
-// resident) and calls body(k0, kn, slice) for each slice in order, slice
-// s+1 loading while body runs on slice s. `loaded`: a resident ring already
-// holds W. Starts and ends synchronised.
-template <typename T, class F>
-__device__ void stream_rows(const T* W, int K, int N, int ks, char* ring, size_t slot,
-                            bool loaded, F body) {
-  const int n_slices = (K + ks - 1) / ks;
-  __syncthreads();  // earlier readers of the ring are done
-  if (!loaded) copy_to_shared(reinterpret_cast<T*>(ring), W, min(ks, K) * N);
-  cp_async_commit();
-  for (int s = 0; s < n_slices; ++s) {
-    const int k0 = s * ks, kn = min(ks, K - k0);
-    if (s + 1 < n_slices)
-      copy_to_shared(reinterpret_cast<T*>(ring + ((s + 1) & 1) * slot), W + (size_t)(k0 + ks) * N,
-                     min(ks, K - k0 - ks) * N);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    body(k0, kn, reinterpret_cast<const T*>(ring + (s & 1) * slot));
-    __syncthreads();
-  }
-}
-
-// C (M x N) = sum over k of A(m, k) * B(k, n), operands in shared memory.
-// Each thread computes a TM x TN tile of C in registers, so one operand load
-// feeds several FMAs. A tile's rows and columns are interleaved
-// (m = tm + i * tiles_m, n = tn + j * tiles_n): neighbouring threads read
-// neighbouring columns of a row-major B. `store(m, n, c)` writes each
-// element once.
-template <int TM, int TN, class FA, class FB, class FC>
-__device__ __forceinline__ void tile_gemm(int M, int N, int K, FA a, FB b, FC store) {
-  const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
-  for (int t = threadIdx.x; t < tiles_m * tiles_n; t += blockDim.x) {
-    const int tm = t / tiles_n, tn = t - tm * tiles_n;
-    int ms[TM], ns[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) ms[i] = min(tm + i * tiles_m, M - 1);  // loads stay in range
-#pragma unroll
-    for (int j = 0; j < TN; ++j) ns[j] = min(tn + j * tiles_n, N - 1);
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = a(ms[i], k);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = b(k, ns[j]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = tm + i * tiles_m;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = tn + j * tiles_n;
-        if (m < M && n < N) store(m, n, acc[i][j]);
-      }
-    }
-  }
-}
-
-// C (M x N) = sum over k of A(m, k) * W[k][n], A in shared memory, W (K x N,
-// row-major) in global memory streamed through `ring` by stream_rows. Each
-// thread owns up to MAXT tiles of TM x TN outputs (interleaved as in
-// tile_gemm) and keeps their sums in registers across all slices, so no
-// partial sum goes back to shared memory; `store(m, n, c)` writes each
-// element once at the end. Tiles beyond MAXT per thread take further passes
-// over W.
-template <typename T, int TM, int TN, int MAXT, class FA, class FC>
-__device__ void stream_gemm(int M, int N, int K, FA a, const T* W, int ks, char* ring,
-                            size_t slot, FC store) {
-  const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
-  const int n_tiles = tiles_m * tiles_n, per_pass = MAXT * (int)blockDim.x;
-  for (int base = 0; base < n_tiles; base += per_pass) {
-    float acc[MAXT][TM][TN];
-#pragma unroll
-    for (int u = 0; u < MAXT; ++u)
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[u][i][j] = 0.f;
-    stream_rows<T>(W, K, N, ks, ring, slot, false,
-                   [&](int k0, int kn, const T* w) {
-#pragma unroll
-                     for (int u = 0; u < MAXT; ++u) {
-                       const int t = base + threadIdx.x + u * blockDim.x;
-                       if (t < n_tiles) {
-                         const int tm = t / tiles_n, tn = t - tm * tiles_n;
-                         int ms[TM], ns[TN];
-#pragma unroll
-                         for (int i = 0; i < TM; ++i) ms[i] = min(tm + i * tiles_m, M - 1);
-#pragma unroll
-                         for (int j = 0; j < TN; ++j) ns[j] = min(tn + j * tiles_n, N - 1);
-                         for (int kk = 0; kk < kn; ++kk) {
-                           float av[TM], bv[TN];
-#pragma unroll
-                           for (int i = 0; i < TM; ++i) av[i] = a(ms[i], k0 + kk);
-#pragma unroll
-                           for (int j = 0; j < TN; ++j) bv[j] = Num<T>::to_f(w[kk * N + ns[j]]);
-#pragma unroll
-                           for (int i = 0; i < TM; ++i)
-#pragma unroll
-                             for (int j = 0; j < TN; ++j)
-                               acc[u][i][j] = fmaf(av[i], bv[j], acc[u][i][j]);
-                         }
-                       }
-                     }
-                   });
-#pragma unroll
-    for (int u = 0; u < MAXT; ++u) {
-      const int t = base + threadIdx.x + u * blockDim.x;
-      if (t >= n_tiles) continue;
-      const int tm = t / tiles_n, tn = t - tm * tiles_n;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int m = tm + i * tiles_m;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int n = tn + j * tiles_n;
-          if (m < M && n < N) store(m, n, acc[u][i][j]);
-        }
-      }
-    }
-    __syncthreads();  // stores done before the caller reads them
-  }
-}
-
-// Loads entities and masks of samples [s0, s0 + ns) and derives row_ok.
-// Ends synchronised.
-template <typename T>
-__device__ void load_group(const T* ents, const uint8_t* pre, const uint8_t* post, int s0,
-                           int ns, const Dims& d, float* sx, float* smask, float* srowok,
-                           float* spost) {
-  const int nx = ns * d.ne * d.d, rows = ns * d.nq, nm = rows * d.ne;
-  const T* src = ents + (size_t)s0 * d.ne * d.d;
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) sx[i] = Num<T>::to_f(src[i]);
-  for (int i = threadIdx.x; i < nm; i += blockDim.x) {
-    const int s = i / (d.nq * d.ne), r = i - s * (d.nq * d.ne);
-    smask[i] = pre ? (float)pre[((size_t)s0 + s) * d.mask_rows * d.ne + r] : 0.f;
-  }
-  for (int i = threadIdx.x; i < rows; i += blockDim.x)
-    spost[i] = post[(size_t)s0 * d.nq + i] ? 0.f : 1.f;
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    float ok = 0.f;
-    for (int j = 0; j < d.ne; ++j)
-      if (smask[i * d.ne + j] == 0.f) { ok = 1.f; break; }
-    srowok[i] = ok;
-  }
-  __syncthreads();
-}
-
-struct Smem {
-  char* ring_q;
-  char* ring_o;
-  float *bo, *x, *qkv, *p, *a, *rowok, *post, *mask;
-};
-
-__device__ inline Smem carve(char* base, const Layout& L) {
-  Smem s;
-  s.ring_q = base + L.ring_q;
-  s.ring_o = base + L.ring_o;
-  float* f = reinterpret_cast<float*>(base + L.f0);
-  s.bo = f + L.bo; s.x = f + L.x; s.qkv = f + L.qkv; s.p = f + L.p; s.a = f + L.a;
-  s.rowok = f + L.rowok; s.post = f + L.post; s.mask = f + L.mask;
-  return s;
-}
-
-// Forward of one group up to attn (row_ok applied), rounded as the TPU
-// kernel rounds. sp holds the f32 softmax weights (s, h, q, j). Ends
-// synchronised.
-template <typename T, bool RES>
-__device__ void forward_group(int ns, const Dims& d, const Layout& L, const T* wqkv, bool loaded,
-                              const Smem& S) {
-  const int c3 = 3 * d.e, hd = d.e / d.h, D = d.d;
-  float* sqkv = S.qkv;
-  const float* sx = S.x;
-  const auto a = [=](int m, int k) { return sx[m * D + k]; };
-  const auto st = [=](int m, int n, float c) { sqkv[m * c3 + n] = Num<T>::round(c); };
-  if (RES) {
-    stream_rows<T>(wqkv, D, c3, d.ks, S.ring_q, L.slot_q, loaded, [&](int, int, const T* w) {
-      tile_gemm<4, 6>(ns * d.ne, c3, D, a,
-                      [=](int k, int n) { return Num<T>::to_f(w[k * c3 + n]); }, st);
-    });
-  } else {
-    stream_gemm<T, 4, 6, 4>(ns * d.ne, c3, D, a, wqkv, d.ks, S.ring_q, L.slot_q, st);
-  }
-
-  float* sp = S.p;
-  const int n_p = ns * d.h * d.nq * d.ne;
-  for (int i = threadIdx.x; i < n_p; i += blockDim.x) {
-    int t = i / d.ne;
-    const int j = i - t * d.ne;
-    const int q = t % d.nq;
-    t /= d.nq;
-    const int h = t % d.h, s = t / d.h;
-    const float* qr = sqkv + (s * d.ne + q) * c3 + h * hd;
-    const float* kr = sqkv + (s * d.ne + j) * c3 + d.e + h * hd;
-    const int k0 = j % hd;
-    float acc = 0.f;
-    for (int kk = 0; kk < hd; ++kk) {
-      int k = kk + k0;
-      if (k >= hd) k -= hd;
-      acc = fmaf(qr[k], kr[k], acc);
-    }
-    sp[i] = S.mask[(s * d.nq + q) * d.ne + j] != 0.f ? kNeg : acc * d.scale;
-  }
-  __syncthreads();
-
-  const int n_rows = ns * d.h * d.nq;
-  for (int r = threadIdx.x; r < n_rows; r += blockDim.x) {
-    float* row = sp + r * d.ne;
-    float m = row[0];
-    for (int j = 1; j < d.ne; ++j) m = fmaxf(m, row[j]);
-    float sum = 0.f;
-    for (int j = 0; j < d.ne; ++j) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    for (int j = 0; j < d.ne; ++j) row[j] = row[j] / sum;
-  }
-  __syncthreads();
-
-  const int n_a = ns * d.nq * d.e;
-  for (int i = threadIdx.x; i < n_a; i += blockDim.x) {
-    const int row = i / d.e, e = i - row * d.e;  // row = s * nq + q
-    const int s = row / d.nq, q = row - s * d.nq, h = e / hd;
-    const float* wr = sp + ((s * d.h + h) * d.nq + q) * d.ne;
-    const float* vc = sqkv + (size_t)s * d.ne * c3 + 2 * d.e + e;
-    float acc = 0.f;
-    for (int j = 0; j < d.ne; ++j) acc = fmaf(Num<T>::round(wr[j]), vc[j * c3], acc);
-    S.a[i] = Num<T>::round(acc * S.rowok[row]);
-  }
-  __syncthreads();
-}
-
-template <typename T, bool RES>
-__global__ void __launch_bounds__(kThreads)
-entity_attn_fwd_kernel(const T* __restrict__ ents, const T* __restrict__ wqkv,
-                       const T* __restrict__ wo, const T* __restrict__ bo,
-                       const uint8_t* __restrict__ pre, const uint8_t* __restrict__ post,
-                       T* __restrict__ out, Dims d) {
-  extern __shared__ __align__(16) char smem[];
-  const Layout L = make_layout(d, sizeof(T));
-  const Smem S = carve(smem, L);
-  for (int i = threadIdx.x; i < d.o; i += blockDim.x) S.bo[i] = Num<T>::to_f(bo[i]);
-  bool loaded = false;
-  for (int s0 = blockIdx.x * d.spb; s0 < d.bp; s0 += gridDim.x * d.spb) {
-    const int ns = min(d.spb, d.bp - s0);
-    load_group<T>(ents, pre, post, s0, ns, d, S.x, S.mask, S.rowok, S.post);
-    forward_group<T, RES>(ns, d, L, wqkv, loaded, S);
-    const int E = d.e, O = d.o;
-    const float *sa = S.a, *sbo = S.bo, *spost = S.post;
-    T* dst = out + (size_t)s0 * d.nq * d.o;
-    const auto a = [=](int m, int k) { return sa[m * E + k]; };
-    const auto st = [=](int m, int n, float c) {
-      dst[m * O + n] = Num<T>::from_f((c + sbo[n]) * spost[m]);
-    };
-    if (RES) {
-      stream_rows<T>(wo, E, O, d.ks, S.ring_o, L.slot_o, loaded, [&](int, int, const T* w) {
-        tile_gemm<4, 2>(ns * d.nq, O, E, a,
-                        [=](int k, int n) { return Num<T>::to_f(w[k * O + n]); }, st);
-      });
-    } else {
-      stream_gemm<T, 4, 2, 2>(ns * d.nq, O, E, a, wo, d.ks, S.ring_o, L.slot_o, st);
-    }
-    loaded = RES;
-  }
+// a per-sample kernel's block: H warps for each of its spb samples
+inline size_t sample_smem(const Dims& d, bool bwd) {
+  return (size_t)make_warp_layout(d, bwd).floats * sizeof(float) * d.h * d.spb;
 }
 
 // Calls body(r, c) once for every row r < rows and column c < cols over the
@@ -574,6 +223,121 @@ __device__ __forceinline__ void rows_dot(const float* const (&a)[4], const float
   }
 }
 
+// Scores of one head, blocked pairs at kNeg, then the f32 softmax of each
+// query row, into sw (Nq x Ne), over a warp's lanes; ends with __syncwarp.
+// Returns G, the lanes per query row of the softmax: a power of 2, G >=
+// min(Ne, 32), 32 / G rows at a time; a group past the last row repeats it
+// and writes nothing.
+__device__ __forceinline__ int head_softmax(const float* sq, const float* sk,
+                                            const float* smask, float* sw, int hdp, int hd,
+                                            int nq, int ne, float scale) {
+  const int lane = threadIdx.x & 31;
+  warp_rows4_cols(nq, ne, [&](const int (&rs)[4], int n, int j) {
+    const float* const a[4] = {sq + rs[0] * hdp, sq + rs[1] * hdp, sq + rs[2] * hdp,
+                               sq + rs[3] * hdp};
+    float acc[4];
+    rows_dot(a, sk + j * hdp, hd, acc);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) {
+        const int i = rs[u] * ne + j;
+        sw[i] = smask[i] != 0.f ? kNeg : acc[u] * scale;
+      }
+  });
+  __syncwarp();
+  int G = 1;
+  while (G < ne && G < 32) G *= 2;
+  const int jl = lane % G;
+  for (int r0 = 0; r0 < nq; r0 += 32 / G) {
+    const int r = r0 + lane / G;
+    const bool live = r < nq;
+    float* row = sw + min(r, nq - 1) * ne;
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int j = jl; j < ne; j += G) m = fmaxf(m, row[j]);
+    m = group_reduce(m, G, [](float a, float b) { return fmaxf(a, b); });
+    float sum = 0.f;
+    for (int j = jl; j < ne; j += G) {
+      const float e = expf(row[j] - m);
+      if (live) row[j] = e;
+      sum += e;
+    }
+    sum = group_reduce(sum, G, [](float a, float b) { return a + b; });
+    for (int j = jl; j < ne; j += G)
+      if (live) row[j] = row[j] / sum;
+  }
+  __syncwarp();
+  return G;
+}
+
+// attn_h = round(w) v_h times row_ok, rounded, over a warp's lanes: row r
+// of the head's Nq x hd block to dst + r * ld
+template <typename T>
+__device__ __forceinline__ void head_attn(const float* sw, const float* sv, const float* srowok,
+                                          float* dst, int ld, int hdp, int hd, int nq, int ne) {
+  warp_rows4_cols(nq, hd, [&](const int (&rs)[4], int n, int c) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int j = 0; j < ne; ++j) {
+      const float v = sv[j * hdp + c];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(Num<T>::round(sw[rs[u] * ne + j]), v, acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (u < n) dst[rs[u] * ld + c] = Num<T>::round(acc[u] * srowok[rs[u]]);
+  });
+}
+
+// the pre-mask of sample s's query rows (1.f where blocked) and row_ok, over
+// a warp's lanes; ends with __syncwarp
+__device__ __forceinline__ void head_mask(const uint8_t* pre, int s, const Dims& d, float* smask,
+                                          float* srowok) {
+  const int lane = threadIdx.x & 31, nq = d.nq, ne = d.ne;
+  warp_rows_cols(nq, ne, [&](int r, int j) {
+    smask[r * ne + j] = pre ? (float)pre[((size_t)s * d.mask_rows + r) * ne + j] : 0.f;
+  });
+  __syncwarp();
+  for (int r = lane; r < nq; r += 32) {
+    float ok = 0.f;
+    for (int j = 0; j < ne; ++j)
+      if (smask[r * ne + j] == 0.f) { ok = 1.f; break; }
+    srowok[r] = ok;
+  }
+  __syncwarp();
+}
+
+// Stage (ii) of the forward, no weights: one warp per (sample, head), H
+// warps per sample and `spb` samples per block, each warp in its own slice of
+// shared memory (no block barrier). From the rounded q (Nq rows) and k|v (Ne
+// rows) of stage (i) it forms the head's scores, the f32 softmax and attn_h
+// = round(w) v_h * row_ok, rounded as pallas_attn.py:117-126 rounds, and
+// writes it as f32 over q_h's rows, which the warp has read first.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+entity_attn_fwd_sample_kernel(float* __restrict__ q, const float* __restrict__ kv,
+                              const uint8_t* __restrict__ pre, Dims d) {
+  extern __shared__ __align__(16) char smem[];
+  const WarpLayout L = make_warp_layout(d, false);
+  const int warp = threadIdx.x >> 5;
+  const int s = blockIdx.x * d.spb + warp / d.h, h = warp % d.h;
+  if (s >= d.bp) return;  // the last block's spare warps; no block barrier follows
+  float* f = reinterpret_cast<float*>(smem) + warp * L.floats;
+  float *sq = f + L.q, *sk = f + L.k, *sv = f + L.v, *sw = f + L.w;
+  float *smask = f + L.mask, *srowok = f + L.rowok;
+  const int E = d.e, E2 = 2 * d.e, hd = d.e / d.h, hdp = L.hdp;
+  float* gq = q + (size_t)s * d.nq * E + h * hd;        // row r of q_h at gq + r * E
+  const float* gkv = kv + (size_t)s * d.ne * E2 + h * hd;  // row j of k_h at gkv + j * E2
+
+  warp_copy_rows(sq, hdp, gq, E, d.nq, hd);
+  warp_copy_rows(sk, hdp, gkv, E2, d.ne, hd);
+  warp_copy_rows(sv, hdp, gkv + E, E2, d.ne, hd);
+  asm volatile("cp.async.commit_group;\n" ::);
+  head_mask(pre, s, d, smask, srowok);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncwarp();
+  head_softmax(sq, sk, smask, sw, hdp, hd, d.nq, d.ne, d.scale);
+  head_attn<T>(sw, sv, srowok, gq, E, hdp, hd, d.nq, d.ne);
+}
+
 // Stage (ii) of the backward, no weights: one warp per (sample, head), H
 // warps per sample and `spb` samples per block, each warp in its own slice of
 // shared memory, so the phases are ordered by __syncwarp and no block barrier.
@@ -594,7 +358,7 @@ entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
                               const uint8_t* __restrict__ pre, const uint8_t* __restrict__ post,
                               float* __restrict__ gm, Dims d) {
   extern __shared__ __align__(16) char smem[];
-  const WarpLayout L = make_warp_layout(d);
+  const WarpLayout L = make_warp_layout(d, true);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int s = blockIdx.x * d.spb + warp / d.h, h = warp % d.h;
   if (s >= d.bp) return;  // the last block's spare warps; no block barrier follows
@@ -635,56 +399,10 @@ entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
     gm[g0 + i] = Num<T>::to_f(g[g0 + i]) * spost[i / O];
   __syncwarp();
 
-  // scores, blocked pairs at kNeg, then the softmax of each query row
-  warp_rows4_cols(nq, ne, [&](const int (&rs)[4], int n, int j) {
-    const float* const a[4] = {sq + rs[0] * hdp, sq + rs[1] * hdp, sq + rs[2] * hdp,
-                               sq + rs[3] * hdp};
-    float acc[4];
-    rows_dot(a, sk + j * hdp, hd, acc);
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (u < n) {
-        const int i = rs[u] * ne + j;
-        sw[i] = smask[i] != 0.f ? kNeg : acc[u] * d.scale;
-      }
-  });
-  __syncwarp();
-  // a group of G lanes (a power of 2, G >= min(Ne, 32)) per query row, 32 / G
-  // rows at a time; a group past the last row repeats it and writes nothing
-  int G = 1;
-  while (G < ne && G < 32) G *= 2;
+  const int G = head_softmax(sq, sk, smask, sw, hdp, hd, nq, ne, d.scale);
   const int jl = lane % G;
-  for (int r0 = 0; r0 < nq; r0 += 32 / G) {
-    const int r = r0 + lane / G;
-    const bool live = r < nq;
-    float* row = sw + min(r, nq - 1) * ne;
-    float m = __int_as_float(0xff800000);  // -inf
-    for (int j = jl; j < ne; j += G) m = fmaxf(m, row[j]);
-    m = group_reduce(m, G, [](float a, float b) { return fmaxf(a, b); });
-    float sum = 0.f;
-    for (int j = jl; j < ne; j += G) {
-      const float e = expf(row[j] - m);
-      if (live) row[j] = e;
-      sum += e;
-    }
-    sum = group_reduce(sum, G, [](float a, float b) { return a + b; });
-    for (int j = jl; j < ne; j += G)
-      if (live) row[j] = row[j] / sum;
-  }
-  __syncwarp();
-
   // attn (over dattn in device memory) and dw = dattn_h v_h^T
-  warp_rows4_cols(nq, hd, [&](const int (&rs)[4], int n, int c) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < ne; ++j) {
-      const float v = sv[j * hdp + c];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] = fmaf(Num<T>::round(sw[rs[u] * ne + j]), v, acc[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (u < n) gda[rs[u] * E + c] = Num<T>::round(acc[u] * srowok[rs[u]]);
-  });
+  head_attn<T>(sw, sv, srowok, gda, E, hdp, hd, nq, ne);
   warp_rows4_cols(nq, ne, [&](const int (&rs)[4], int n, int j) {
     const float* const a[4] = {sda + rs[0] * hdp, sda + rs[1] * hdp, sda + rs[2] * hdp,
                                sda + rs[3] * hdp};
@@ -695,7 +413,7 @@ entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
       if (u < n) sdl[rs[u] * ne + j] = acc[u];
   });
   __syncwarp();
-  // softmax VJP: dl = w * (dw - sum(dw * w))
+  // softmax VJP: dl = w * (dw - sum(dw * w)), the softmax's lane groups
   for (int r0 = 0; r0 < nq; r0 += 32 / G) {
     const int r = min(r0 + lane / G, nq - 1);
     const bool live = r0 + lane / G < nq;
@@ -784,30 +502,45 @@ __global__ void entity_attn_reduce_kernel(const float* __restrict__ partials, in
   out[k] = acc;
 }
 
-Dims make_dims(int bp, int ne, int nq, int d, int e, int o, int h, int mask_rows, int spb,
-               int ks) {
+Dims make_dims(int bp, int ne, int nq, int d, int e, int o, int h, int mask_rows, int spb) {
   Dims dims;
   dims.bp = bp; dims.ne = ne; dims.nq = nq; dims.d = d; dims.e = e; dims.o = o; dims.h = h;
   dims.mask_rows = mask_rows;
   dims.spb = spb;
-  dims.ks = ks;
   dims.scale = (float)(1.0 / sqrt((double)(e / h)));  // the Python-float scale
   return dims;
 }
 
-// One instance per (type, resident): the streamed instance keeps ~200
-// registers of partial sums per thread, which would halve the resident
-// instance's occupancy if they shared one register allocation.
-template <typename T, bool RES>
-cudaError_t launch_fwd(const void* ents, const void* wqkv, const void* wo, const void* bo,
-                       const uint8_t* pm, const uint8_t* qm, void* out, const Dims& dims,
-                       int grid, int smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(entity_attn_fwd_kernel<T, RES>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  entity_attn_fwd_kernel<T, RES><<<grid, kThreads, smem, st>>>(
-      (const T*)ents, (const T*)wqkv, (const T*)wo, (const T*)bo, pm, qm, (T*)out, dims);
-  return cudaGetLastError();
+// The forward as stages on one stream, with f32 scratch q (Bp*Nq, E): Q,
+// then attn, and kv (Bp*Ne, 2E): K|V, each row-major:
+//   (i)   K|V = ents W_kv, Q = ents[:, :Nq] W_q, through gemm::launch;
+//   (ii)  entity_attn_fwd_sample_kernel;
+//   (iii) out = attn W_o + b_o, post-masked rows 0, stored as T.
+template <typename T>
+cudaError_t launch_fwd(const T* ents, const T* wqkv, const T* wo, const T* bo, const uint8_t* pm,
+                       const uint8_t* qm, T* out, float* q, float* kv, const Dims& d, int grid,
+                       int smem, cudaStream_t st) {
+  using gemm::operand;
+  using gemm::output;
+  const int E = d.e, E2 = 2 * d.e, E3 = 3 * d.e, rnd = sizeof(T) == 2;
+  const int rows_e = d.bp * d.ne, rows_q = d.bp * d.nq;
+  cudaError_t err;
+#define REFIL_TRY(call) \
+  if ((err = (call)) != cudaSuccess) return err
+  REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d), operand(wqkv + E, E3),
+                                      output(kv, E2, 1, 1, 0, rnd), rows_e, E2, d.d, 1, st)));
+  REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d, d.nq, d.ne), operand(wqkv, E3),
+                                      output(q, E, 1, 1, 0, rnd), rows_q, E, d.d, 1, st)));
+  if (smem > kDefaultSmem)
+    REFIL_TRY(cudaFuncSetAttribute(entity_attn_fwd_sample_kernel<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  entity_attn_fwd_sample_kernel<T><<<grid, 32 * d.h * d.spb, smem, st>>>(q, kv, pm, d);
+  REFIL_TRY(cudaGetLastError());
+  REFIL_TRY((gemm::launch<float, T, true, T, true>(operand(q, E), operand(wo, d.o),
+                                                   output(out, d.o, 1, 1, 0, 0, 0, bo, qm),
+                                                   rows_q, d.o, E, 1, st)));
+#undef REFIL_TRY
+  return cudaSuccess;
 }
 
 // f32 scratch of the backward, each (rows, columns) row-major:
@@ -858,8 +591,9 @@ cudaError_t launch_bwd(const T* ents, const T* g, const T* wqkv, const T* wo, co
   REFIL_TRY((gemm::launch<T, T, true>(operand(g, d.o), operand(wo_t, E), output(s.da, E),
                                       rows_q, E, d.o, 1, st)));
   // (ii)
-  REFIL_TRY(cudaFuncSetAttribute(entity_attn_bwd_sample_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (smem > kDefaultSmem)
+    REFIL_TRY(cudaFuncSetAttribute(entity_attn_bwd_sample_kernel<T>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   entity_attn_bwd_sample_kernel<T><<<grid, 32 * d.h * d.spb, smem, st>>>(s.q, s.kv, s.da, g,
                                                                          pm, qm, s.gm, d);
   REFIL_TRY(cudaGetLastError());
@@ -891,89 +625,57 @@ cudaError_t launch_bwd(const T* ents, const T* g, const T* wqkv, const T* wo, co
 
 extern "C" {
 
-// Chooses the launch of a call. Forward: samples per block iteration (spb),
-// weight rows per slice (ks; >= max(d, e) means the weights stay resident),
-// the persistent grid and the dynamic shared memory in bytes; the most
-// samples per block first; at each, resident where both weight matrices fit
-// beside the group, else the weights stream in slices of 16 or 8 rows.
-// Backward: the per-sample kernel's samples per block (a warp per head of
-// each; the most of 8, 4, 2, 1 within 8 warps and 48 KB of shared memory, so
-// several blocks share an SM), its grid (one block per group), its shared
-// memory, and the row chunks of the weight gradients (two blocks per SM for
-// each single-tile product, each chunk at least 64 rows); ks is 0. Returns
-// cudaErrorInvalidValue if even one sample per block does not fit (or, for
-// the backward, for more than 8 heads).
+// Chooses the launch of a call's per-sample kernel: samples per block (a
+// warp per head of each; the most of 8, 4, 2, 1 within 8 warps and 48 KB of
+// shared memory, so several blocks share an SM), its grid (one block per
+// group) and its shared memory; for the backward also the row chunks of the
+// weight gradients (two blocks per SM for each single-tile product, each
+// chunk at least 64 rows; 0 for the forward). Returns cudaErrorInvalidValue
+// for more than 8 heads or if one sample's warps do not fit a block.
 int entity_attn_plan(int bwd, int dtype, int bp, int ne, int nq, int d, int e, int o, int h,
-                     int device, int* spb, int* ks, int* grid, int* smem, int* chunks) {
-  int n_sm = 0, optin = 0, per_sm = 0;
+                     int device, int* spb, int* grid, int* smem, int* chunks) {
+  (void)dtype;  // the per-sample kernels hold f32 rows whatever the inputs' type
+  int n_sm = 0, optin = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
   if (err != cudaSuccess) return (int)err;
-  if (bwd) {
-    for (int s = 8; s >= 1; s /= 2) {
-      const Dims dims = make_dims(bp, ne, nq, d, e, o, h, 0, s, 0);
-      const size_t bytes = bwd_sample_smem(dims);
-      if (s > 1 && (h * s > 8 || bytes > 48 * 1024)) continue;
-      if (h > 8 || bytes > (size_t)optin) break;
-      *spb = s;
-      *ks = 0;
-      *grid = (bp + s - 1) / s;
-      *smem = (int)bytes;
-      int c = 2 * n_sm;
-      const int max_c = bp * nq / 64;
-      if (c > max_c) c = max_c;
-      *chunks = c < 1 ? 1 : c;
-      return (int)cudaSuccess;
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t elem = dtype == 0 ? 4 : 2;
-  const int res_ks = d > e ? d : e;
-  const int ks_try[3] = {res_ks, 16, 8};
-  for (int s = 4; s >= 1; s /= 2) {
-    for (int ki = 0; ki < 3; ++ki) {
-      if (ki > 0 && ks_try[ki] >= res_ks) continue;  // streaming only where it changes something
-      const Layout L = make_layout(make_dims(bp, ne, nq, d, e, o, h, 0, s, ks_try[ki]), elem);
-      if (L.fwd_bytes > (size_t)optin) continue;
-      int blocks_per_sm = (int)(per_sm / (L.fwd_bytes + 1024));
-      if (blocks_per_sm < 1) blocks_per_sm = 1;
-      if (blocks_per_sm > 4) blocks_per_sm = 4;
-      const int need = (bp + s - 1) / s;
-      const int cap = n_sm * blocks_per_sm;
-      *spb = s;
-      *ks = ks_try[ki];
-      *grid = need < cap ? need : cap;
-      *smem = (int)L.fwd_bytes;
-      *chunks = 0;
-      return (int)cudaSuccess;
-    }
+  for (int s = 8; s >= 1; s /= 2) {
+    const size_t bytes = sample_smem(make_dims(bp, ne, nq, d, e, o, h, 0, s), bwd != 0);
+    if (s > 1 && (h * s > 8 || bytes > 48 * 1024)) continue;
+    if (h > 8 || bytes > (size_t)optin) break;
+    *spb = s;
+    *grid = (bp + s - 1) / s;
+    *smem = (int)bytes;
+    int c = 2 * n_sm;
+    const int max_c = bp * nq / 64;
+    if (c > max_c) c = max_c;
+    *chunks = bwd ? (c < 1 ? 1 : c) : 0;
+    return (int)cudaSuccess;
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. pre may be null (no pre-mask). Weights
-// that are not 16-byte aligned are copied without cp.async (slower, same
-// result).
+// dtype: 0 = float32, 1 = bfloat16. pre may be null (no pre-mask). f32
+// scratch q (Bp*Nq*E) and kv (Bp*Ne*2E); spb, grid and smem from
+// entity_attn_plan(bwd = 0).
 int entity_attn_fwd(int dtype, const void* ents, const void* wqkv, const void* wo,
-                    const void* bo, const void* pre, const void* post, void* out, int bp, int ne,
-                    int nq, int d, int e, int o, int h, int mask_rows, int spb, int ks, int grid,
-                    int smem, void* stream) {
-  const Dims dims = make_dims(bp, ne, nq, d, e, o, h, pre ? mask_rows : 0, spb, ks);
+                    const void* bo, const void* pre, const void* post, void* out, void* q,
+                    void* kv, int bp, int ne, int nq, int d, int e, int o, int h, int mask_rows,
+                    int spb, int grid, int smem, void* stream) {
+  const Dims dims = make_dims(bp, ne, nq, d, e, o, h, pre ? mask_rows : 0, spb);
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* pm = (const uint8_t*)pre;
   const uint8_t* qm = (const uint8_t*)post;
   typedef __nv_bfloat16 B;
-  const bool res = resident(dims);
   const cudaError_t err =
-      dtype == 0 ? (res ? launch_fwd<float, true> : launch_fwd<float, false>)(
-                       ents, wqkv, wo, bo, pm, qm, out, dims, grid, smem, st)
-                 : (res ? launch_fwd<B, true> : launch_fwd<B, false>)(
-                       ents, wqkv, wo, bo, pm, qm, out, dims, grid, smem, st);
+      dtype == 0 ? launch_fwd<float>((const float*)ents, (const float*)wqkv, (const float*)wo,
+                                     (const float*)bo, pm, qm, (float*)out, (float*)q,
+                                     (float*)kv, dims, grid, smem, st)
+                 : launch_fwd<B>((const B*)ents, (const B*)wqkv, (const B*)wo, (const B*)bo, pm,
+                                 qm, (B*)out, (float*)q, (float*)kv, dims, grid, smem, st);
   return (int)err;
 }
 
@@ -988,7 +690,7 @@ int entity_attn_bwd(int dtype, const void* ents, const void* g, const void* wqkv
                     int d,
                     int e, int o, int h, int mask_rows, int spb, int grid, int smem, int chunks,
                     void* stream) {
-  const Dims dims = make_dims(bp, ne, nq, d, e, o, h, pre ? mask_rows : 0, spb, 0);
+  const Dims dims = make_dims(bp, ne, nq, d, e, o, h, pre ? mask_rows : 0, spb);
   typedef __nv_bfloat16 B;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* pm = (const uint8_t*)pre;
@@ -1007,22 +709,40 @@ int entity_attn_bwd(int dtype, const void* ents, const void* g, const void* wqkv
   return (int)err;
 }
 
-// The backward's matrix product alone (gemm.cuh), for its checks: C = A B
-// with A of type ta, B of type tb (0 = float32, 1 = bfloat16), ka = 1 where
-// A's contiguous index is k, row maps (group, stride) and leading dimensions
-// as in gemm::Operand and gemm::Output. Takes the five (ta, tb, ka) the
-// backward uses: float32 (0, 0, 1), (0, 0, 0); bfloat16 inputs (1, 1, 1),
-// (0, 1, 1), (1, 0, 0); any other returns cudaErrorInvalidValue.
-int entity_attn_gemm(int ta, int tb, int ka, const void* a, long long lda, int a_group,
+// The matrix product of both directions alone (gemm.cuh), for its checks: C
+// = A B with A of type ta, B of type tb, C of type tc (0 = float32, 1 =
+// bfloat16), ka = 1 where A's contiguous index is k, row maps (group,
+// stride), leading dimensions and the epilogue (bias of C's type, null or
+// (N,); drop, null or a byte per row) as in gemm::Operand and gemm::Output.
+// Takes the (ta, tb, ka, tc) the attention uses: float32 (0, 0, 1, 0), (0,
+// 0, 0, 0); bfloat16 inputs (1, 1, 1, 0), (0, 1, 1, 0), (1, 0, 0, 0) and the
+// forward's output product (0, 1, 1, 1); a bias or drop only with the
+// output product's (0, 0, 1, 0) or (0, 1, 1, 1); any other returns
+// cudaErrorInvalidValue.
+int entity_attn_gemm(int ta, int tb, int ka, int tc, const void* a, long long lda, int a_group,
                      int a_stride, const void* b, long long ldb, void* c, long long ldc,
                      int c_group, int c_stride, int add, int round_bf16, long long chunk_stride,
-                     int M, int N, int K, int chunks, void* stream) {
+                     const void* bias, const void* drop, int M, int N, int K, int chunks,
+                     void* stream) {
   typedef __nv_bfloat16 B;
   const gemm::Operand A = gemm::operand(a, lda, a_group, a_stride);
   const gemm::Operand Bo = gemm::operand(b, ldb);
-  const gemm::Output C =
-      gemm::output((float*)c, ldc, c_group, c_stride, add, round_bf16, chunk_stride);
+  const uint8_t* dr = (const uint8_t*)drop;
   cudaStream_t st = (cudaStream_t)stream;
+  if (tc == 1) {
+    if (ta != 0 || tb != 1 || ka != 1) return (int)cudaErrorInvalidValue;
+    return (int)gemm::launch<float, B, true, B, true>(
+        A, Bo,
+        gemm::output((B*)c, ldc, c_group, c_stride, add, round_bf16, chunk_stride,
+                     (const B*)bias, dr),
+        M, N, K, chunks, st);
+  }
+  const gemm::Output<float> C = gemm::output((float*)c, ldc, c_group, c_stride, add, round_bf16,
+                                             chunk_stride, (const float*)bias, dr);
+  if (bias != nullptr || drop != nullptr) {  // the float32 forward's output product
+    if (ta != 0 || tb != 0 || ka != 1) return (int)cudaErrorInvalidValue;
+    return (int)gemm::launch<float, float, true, float, true>(A, Bo, C, M, N, K, chunks, st);
+  }
   switch (ta * 4 + tb * 2 + ka) {
     case 1: return (int)gemm::launch<float, float, true>(A, Bo, C, M, N, K, chunks, st);
     case 0: return (int)gemm::launch<float, float, false>(A, Bo, C, M, N, K, chunks, st);

@@ -104,6 +104,71 @@ def entity_attention(
     return out
 
 
+class ForwardStages(NamedTuple):
+    """What ``entity_attention_forward_staged`` returns."""
+    out: torch.Tensor  # (B, Nq, O) in the inputs' dtype
+    q: torch.Tensor  # (B, Nq, E) f32, rounded to the inputs' dtype
+    kv: torch.Tensor  # (B, Ne, 2E) f32, rounded
+    weights: torch.Tensor  # (B, H, Nq, Ne) f32 softmax
+    attn: torch.Tensor  # (B, Nq, E) f32, rounded, row_ok applied
+    row_ok: torch.Tensor  # (B, Nq) f32: 0 where the pre-mask blocks the whole row
+
+
+def entity_attention_forward_staged(
+    entities: torch.Tensor,
+    in_kernel: torch.Tensor,
+    out_kernel: torch.Tensor,
+    out_bias: Optional[torch.Tensor],
+    pre_mask: Optional[torch.Tensor],
+    post_mask: torch.Tensor,
+    n_heads: int,
+) -> ForwardStages:
+    """``entity_attention`` computed in the stages of the CUDA forward
+    (``csrc/entity_attn.cu``, ``launch_fwd``), so that each stage has a
+    plain counterpart:
+
+      (i)   K|V = ents W_kv over all Ne rows, Q = ents[:, :Nq] W_q over the
+            query rows only;
+      (ii)  per sample and head: the scores, blocked pairs at -1e9, the f32
+            softmax, attn = round(w) v * row_ok;
+      (iii) out = (attn W_o + b_o) * post_keep in the inputs' dtype
+            (``out_bias`` None: no bias).
+
+    Every product accumulates in float32; values are rounded to the inputs'
+    dtype where ``refil_tpu/ops/pallas_attn.py:_kernel`` rounds them (qkv,
+    the softmax weights fed to w v, attn, out)."""
+    cdt = entities.dtype
+    rnd = lambda x: x.to(cdt).float()  # noqa: E731
+    B = entities.shape[0]
+    Nq = post_mask.shape[1]
+    E = in_kernel.shape[1] // 3
+    hd = E // n_heads
+    scale = 1.0 / math.sqrt(hd)
+    x, w_qkv = entities.float(), in_kernel.float()
+    heads = lambda t: t.reshape(B, t.shape[1], n_heads, hd).transpose(1, 2)  # noqa: E731
+
+    # (i) projections
+    kv = rnd(x @ w_qkv[:, E:])
+    q = rnd(x[:, :Nq] @ w_qkv[:, :E])
+
+    # (ii) the attention, per sample and head
+    pm = None if pre_mask is None else pre_mask[:, :Nq]
+    row_ok = (torch.ones((B, Nq)) if pm is None else (~pm.all(-1)).float()).to(x.device)
+    logits = heads(q) @ heads(kv[..., :E]).transpose(-1, -2) * scale
+    if pm is not None:
+        logits = logits.masked_fill(pm[:, None], NEG)
+    w = torch.softmax(logits, dim=-1)  # (B, H, Nq, Ne) f32
+    attn = (rnd(w) @ heads(kv[..., E:])).transpose(1, 2).reshape(B, Nq, E)
+    attn = rnd(attn * row_ok[..., None])
+
+    # (iii) the output projection, bias and post-mask in its epilogue
+    out = attn @ out_kernel.float()
+    if out_bias is not None:
+        out = out + out_bias.float()
+    out = out.masked_fill(post_mask[..., None], 0.0).to(cdt)
+    return ForwardStages(out, q, kv, w, attn, row_ok)
+
+
 class BackwardStages(NamedTuple):
     """What ``entity_attention_backward_staged`` returns, float32."""
     d_entities: torch.Tensor  # (B, Ne, D)
@@ -126,9 +191,9 @@ def entity_attention_backward_staged(
     computed in the stages of the CUDA backward (``csrc/entity_attn.cu``,
     ``launch_bwd``), so that each stage has a plain counterpart:
 
-      (i)   K|V = ents W_kv over all Ne rows, Q = ents[:, :Nq] W_q over the
-            query rows only, dattn = g W_o^T;
-      (ii)  per sample: the softmax, attn, dv, the softmax VJP, dq, dk;
+      (i)   K|V, Q and the attention as ``entity_attention_forward_staged``
+            forms them, dattn = g W_o^T;
+      (ii)  per sample: dv, the softmax VJP, dq, dk;
       (iii) dEnts = dK|dV W_kv^T + dq W_q^T (on the query rows), dW_qkv,
             dW_o = attn^T (g post_keep), db_o.
 
@@ -146,22 +211,16 @@ def entity_attention_backward_staged(
     heads = lambda t: t.reshape(B, t.shape[1], n_heads, hd).transpose(1, 2)  # noqa: E731
     merge = lambda t: t.transpose(1, 2).reshape(B, t.shape[2], E)  # noqa: E731
 
-    # (i) projections
-    kv = rnd(x @ w_qkv[:, E:])
-    q = rnd(x[:, :Nq] @ w_qkv[:, :E])
+    # (i) the recomputed forward and dattn
+    fwd = entity_attention_forward_staged(entities, in_kernel, out_kernel, None, pre_mask,
+                                          post_mask, n_heads)
+    q, kv, w, attn, row_ok = fwd.q, fwd.kv, fwd.weights, fwd.attn, fwd.row_ok
     dattn_raw = g.to(cdt).float() @ w_o.T
 
     # (ii) the attention's VJP, per sample
-    pm = None if pre_mask is None else pre_mask[:, :Nq]
-    row_ok = (torch.ones((B, Nq)) if pm is None else (~pm.all(-1)).float()).to(x.device)
     post_keep = (~post_mask).float()
     dattn = rnd(dattn_raw * (post_keep * row_ok)[..., None])
     qh, kh, vh = heads(q), heads(kv[..., :E]), heads(kv[..., E:])
-    logits = qh @ kh.transpose(-1, -2) * scale
-    if pm is not None:
-        logits = logits.masked_fill(pm[:, None], NEG)
-    w = torch.softmax(logits, dim=-1)  # (B, H, Nq, Ne) f32
-    attn = rnd(merge(rnd(w) @ vh) * row_ok[..., None])
     dah = heads(dattn)
     dv = rnd(rnd(w).transpose(-1, -2) @ dah)
     dw = dah @ vh.transpose(-1, -2)

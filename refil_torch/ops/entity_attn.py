@@ -4,9 +4,9 @@
 ``refil_tpu/ops/pallas_attn.py:pallas_entity_attention``. It dispatches on the
 device of the tensors it is given:
 
-  * CUDA tensors go through ``EntityAttentionFn``: the forward kernel
+  * CUDA tensors go through ``EntityAttentionFn``: the forward kernels
     (``entity_attn_fwd`` in ``csrc/entity_attn.cu``, replacing the Pallas
-    ``_kernel``) and, on backward, the backward kernel (``entity_attn_bwd``,
+    ``_kernel``) and, on backward, the backward kernels (``entity_attn_bwd``,
     replacing ``_bwd_kernel``). A launch that fails raises; nothing falls back.
   * CPU tensors go to the plain PyTorch version ``ops.attention.entity_attention``.
 
@@ -14,16 +14,17 @@ Weights keep the JAX layout at this interface: ``in_kernel`` (D, 3E),
 ``out_kernel`` (E, O), ``out_bias`` (O,).
 
 ``launches`` counts the kernel launches of each wrapper, so a run can show its
-main path went through the kernels. One backward launch is all the stage
-kernels of one call: the projections (``csrc/gemm.cuh``), the per-sample
-kernel, the products of dEnts and the weight gradients over row chunks, and
-the chunks summed in order. ``gemm`` launches the backward's matrix product
-alone, for its checks; the main path never calls it, so its count stays 0
-there.
+main path went through the kernels. One launch is all the stage kernels of
+one call: forward, the projections (``csrc/gemm.cuh``), the per-sample kernel
+and the output product; backward, the projections, the per-sample kernel,
+the products of dEnts and the weight gradients over row chunks, and the
+chunks summed in order. ``gemm`` launches the matrix product alone, for its
+checks; the main path never calls it, so its count stays 0 there.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -49,15 +50,15 @@ def _lib():
         lib = ctypes.CDLL(library("entity_attn"))
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.entity_attn_plan.argtypes = [i] * 10 + [ip] * 5
+        lib.entity_attn_plan.argtypes = [i] * 10 + [ip] * 4
         lib.entity_attn_plan.restype = i
-        lib.entity_attn_fwd.argtypes = [i] + [p] * 7 + [i] * 12 + [p]
+        lib.entity_attn_fwd.argtypes = [i] + [p] * 9 + [i] * 11 + [p]
         lib.entity_attn_fwd.restype = i
         lib.entity_attn_bwd.argtypes = [i] + [p] * 14 + [i] * 12 + [p]
         lib.entity_attn_bwd.restype = i
         ll = ctypes.c_longlong
-        lib.entity_attn_gemm.argtypes = ([i] * 3 + [p, ll, i, i] + [p, ll] * 2 + [i] * 4
-                                         + [ll] + [i] * 4 + [p])
+        lib.entity_attn_gemm.argtypes = ([i] * 4 + [p, ll, i, i] + [p, ll] * 2 + [i] * 4
+                                         + [ll, p, p] + [i] * 4 + [p])
         lib.entity_attn_gemm.restype = i
         lib.entity_attn_error_string.argtypes = [i]
         lib.entity_attn_error_string.restype = ctypes.c_char_p
@@ -101,16 +102,17 @@ def _validate(entities, in_kernel, out_kernel, pre_mask, post_mask, n_heads):
 
 
 class Plan(NamedTuple):
-    spb: int  # samples per block (iteration of the forward's persistent blocks)
-    ks: int  # forward: weight rows per shared-memory slice; >= max(D, E): resident
-    grid: int  # blocks
-    smem: int  # dynamic shared memory in bytes
-    chunks: int  # row chunks of the backward's weight-gradient products
+    spb: int  # samples per block of the per-sample kernel
+    grid: int  # its blocks
+    smem: int  # its dynamic shared memory in bytes
+    chunks: int  # row chunks of the backward's weight-gradient products (0: forward)
 
 
+@functools.lru_cache(maxsize=64)  # a few dozen call shapes per run
 def launch_plan(bwd: bool, dtype: torch.dtype, dims, device_index: int) -> Plan:
-    """The launch of a call at ``dims`` = (Bp, Ne, Nq, D, E, O, heads);
-    raises where not even one sample fits one block's shared memory."""
+    """The launch of a call's per-sample kernel at ``dims`` = (Bp, Ne, Nq,
+    D, E, O, heads); raises where not even one sample fits one block's
+    shared memory."""
     lib = _lib()
     Bp, Ne, Nq, D, E, O, H = dims
     out = [ctypes.c_int() for _ in Plan._fields]
@@ -127,7 +129,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def kernel_forward(entities, in_kernel, out_kernel, out_bias, pre_mask, post_mask,
                    n_heads: int) -> torch.Tensor:
-    """Launches the forward kernel on CUDA tensors; returns (Bp, Nq, O)."""
+    """Launches the forward's kernels on CUDA tensors; returns (Bp, Nq, O)."""
     Bp, Ne, Nq, D, E, O = _validate(entities, in_kernel, out_kernel, pre_mask, post_mask,
                                     n_heads)
     if entities.device.type != "cuda":
@@ -144,11 +146,16 @@ def kernel_forward(entities, in_kernel, out_kernel, out_bias, pre_mask, post_mas
     qm = post_mask.contiguous()
     plan = launch_plan(False, entities.dtype, (Bp, Ne, Nq, D, E, O, n_heads),
                        entities.device.index)
+    # f32 scratch: Q (then attn), (Bp * Nq, E), and K|V, (Bp * Ne, 2E)
+    scratch = torch.empty((Bp * (Nq + 2 * Ne) * E,), dtype=torch.float32,
+                          device=entities.device)
+    q = scratch.data_ptr()
+    kv = q + Bp * Nq * E * scratch.element_size()
     stream = torch.cuda.current_stream(entities.device).cuda_stream
     err = lib.entity_attn_fwd(
         _DTYPES[entities.dtype], _ptr(ents), _ptr(wi), _ptr(wo), _ptr(bo), _ptr(pm), _ptr(qm),
-        _ptr(out), Bp, Ne, Nq, D, E, O, n_heads, 0 if pm is None else pm.shape[1], plan.spb,
-        plan.ks, plan.grid, plan.smem, stream)
+        _ptr(out), q, kv, Bp, Ne, Nq, D, E, O, n_heads,
+        0 if pm is None else pm.shape[1], plan.spb, plan.grid, plan.smem, stream)
     _check(lib, err, "entity_attn_fwd launch")
     launches["entity_attn_fwd"] += 1
     return out
@@ -198,11 +205,11 @@ def kernel_backward(entities, in_kernel, out_kernel, pre_mask, post_mask, g,
 
 
 class Operand(NamedTuple):
-    """A matrix as the backward's product (``csrc/gemm.cuh``) reads it:
-    element (r, c) at ``flat[row(r) * ld + c]``, with row(r) = (r // group)
-    * stride + r % group (group = stride: plain rows; group Nq, stride Ne:
-    the first Nq of every Ne rows)."""
-    flat: torch.Tensor  # 1-d, float32 or bfloat16 (float32 for the output)
+    """A matrix as the product (``csrc/gemm.cuh``) reads it: element (r, c)
+    at ``flat[row(r) * ld + c]``, with row(r) = (r // group) * stride + r %
+    group (group = stride: plain rows; group Nq, stride Ne: the first Nq of
+    every Ne rows)."""
+    flat: torch.Tensor  # 1-d, float32 or bfloat16
     ld: int
     group: int = 1
     stride: int = 1
@@ -226,7 +233,8 @@ class Operand(NamedTuple):
 
 def plain_gemm(a: Operand, b: Operand, c: Operand, M: int, N: int, K: int, ka: bool,
                add: bool = False, round_bf16: bool = False, chunks: int = 1,
-               chunk_stride: int = 0) -> None:
+               chunk_stride: int = 0, bias: Optional[torch.Tensor] = None,
+               drop: Optional[torch.Tensor] = None) -> None:
     """The plain version of ``gemm``: the same products written into ``c``
     the same way, by torch.matmul in float32."""
     A = a.matrix(M, K) if ka else a.matrix(K, M).T
@@ -234,25 +242,30 @@ def plain_gemm(a: Operand, b: Operand, c: Operand, M: int, N: int, K: int, ka: b
     for chunk in range(chunks):
         k0, k1 = K * chunk // chunks, K * (chunk + 1) // chunks
         val = A[:, k0:k1] @ B[k0:k1]
+        if bias is not None:
+            val = val + bias.float()
+        if drop is not None:
+            val = val.masked_fill(drop[:, None], 0.0)
         if round_bf16:
             val = val.bfloat16().float()
         idx = (chunk * chunk_stride + c.rows(M)[:, None] * c.ld
                + torch.arange(N, device=c.flat.device))
-        c.flat[idx] = c.flat[idx] + val if add else val
+        c.flat[idx] = (c.flat[idx].float() + val if add else val).to(c.flat.dtype)
 
 
 def gemm(a: Operand, b: Operand, c: Operand, M: int, N: int, K: int, ka: bool,
          add: bool = False, round_bf16: bool = False, chunks: int = 1,
-         chunk_stride: int = 0) -> None:
-    """Launches the backward's matrix product alone on CUDA tensors: C (M x
+         chunk_stride: int = 0, bias: Optional[torch.Tensor] = None,
+         drop: Optional[torch.Tensor] = None) -> None:
+    """Launches the attention's matrix product alone on CUDA tensors: C (M x
     N) = sum over k of A(m, k) B(k, n), A stored m x k where ``ka`` (else
-    k x m), B stored k x n (plain rows); chunk c of ``chunks``
-    sums its share of K into ``c`` shifted by c * ``chunk_stride``. The
-    backward launches it from C (``launch_bwd``); this entry is for its
-    checks. Takes the operand types the backward uses (see
-    ``entity_attn_gemm``)."""
-    if c.flat.dtype != torch.float32:
-        raise TypeError("gemm: the output is float32")
+    k x m), B stored k x n (plain rows); chunk c of ``chunks`` sums its
+    share of K into ``c`` shifted by c * ``chunk_stride``. The epilogue adds
+    ``bias`` ((N,), C's dtype) and stores the rows where ``drop`` ((M,)
+    bool) is set as zeros (with the forward's output product's types only).
+    The forward and backward launch it from C (``launch_fwd``,
+    ``launch_bwd``); this entry is for its checks. Takes the operand and
+    output types they use (see ``entity_attn_gemm``)."""
     for op in (a, b, c):
         if op.flat.dtype not in _DTYPES:
             raise TypeError(f"gemm takes float32 or bfloat16, not {op.flat.dtype}")
@@ -260,15 +273,21 @@ def gemm(a: Operand, b: Operand, c: Operand, M: int, N: int, K: int, ka: bool,
             raise ValueError("gemm takes CUDA tensors on one device")
     if b.group != 1 or b.stride != 1:
         raise ValueError("gemm: B has plain rows")
+    if bias is not None and (bias.shape != (N,) or bias.dtype != c.flat.dtype
+                             or not bias.is_contiguous()):
+        raise ValueError("gemm: bias is (N,) of C's dtype")
+    if drop is not None and (drop.shape != (M,) or drop.dtype != torch.bool):
+        raise ValueError("gemm: drop is (M,) bool")
     a.check(*((M, K) if ka else (K, M)))
     b.check(K, N)
     c.check(M, N, (chunks - 1) * chunk_stride)
     lib = _lib()
     err = lib.entity_attn_gemm(
-        _DTYPES[a.flat.dtype], _DTYPES[b.flat.dtype], int(ka),
+        _DTYPES[a.flat.dtype], _DTYPES[b.flat.dtype], int(ka), _DTYPES[c.flat.dtype],
         _ptr(a.flat), a.ld, a.group, a.stride, _ptr(b.flat), b.ld,
         _ptr(c.flat), c.ld, c.group, c.stride, int(add), int(round_bf16), chunk_stride,
-        M, N, K, chunks, torch.cuda.current_stream(c.flat.device).cuda_stream)
+        _ptr(bias), _ptr(drop), M, N, K, chunks,
+        torch.cuda.current_stream(c.flat.device).cuda_stream)
     _check(lib, err, "entity_attn_gemm launch")
     launches["entity_attn_gemm"] += 1
 

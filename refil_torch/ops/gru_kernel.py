@@ -6,7 +6,7 @@ the tensors it is given:
 
   * CUDA tensors go through ``GRUFn``: the forward kernel (``gru_fwd`` in
     ``csrc/gru.cu``, replacing the Pallas ``_fwd_kernel``) and, on backward,
-    the backward kernel (``gru_bwd``, replacing ``_bwd_kernel``), at every T,
+    the backward's kernels (``gru_bwd``, replacing ``_bwd_kernel``), at every T,
     the T = 1 rollout step included. The JAX dispatch sends T = 1 to its
     scan (``pallas_gru.py:326``); on the card one launch is cheaper than the
     chain of small ops a step takes, and one rule leaves no path around the
@@ -14,8 +14,10 @@ the tensors it is given:
   * CPU tensors go to the plain PyTorch version ``ops.gru.gru_sequence``.
 
 ``launches`` counts the kernel launches of each wrapper. One backward launch
-is the backward kernel plus the small kernel that sums its per-block dW_h and
-db_hn in block order.
+is all the stage kernels of one call: the recurrent product GH (two
+products of ``csrc/gemm.cuh``), the kernel that carries dh, the weight
+gradient's products over row chunks, db_hn's column sums and the chunks
+summed in order.
 """
 from __future__ import annotations
 
@@ -45,13 +47,12 @@ def _lib():
 
         lib = ctypes.CDLL(library("gru"))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_rows_per_block.restype = i
         lib.gru_max_hidden.restype = i
-        lib.gru_fwd_plan.argtypes = [i] * 3 + [ctypes.POINTER(i)] * 3
-        lib.gru_fwd_plan.restype = i
+        lib.gru_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 5
+        lib.gru_plan.restype = i
         lib.gru_fwd.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
         lib.gru_fwd.restype = i
-        lib.gru_bwd.argtypes = [i] + [p] * 10 + [i] * 3 + [p]
+        lib.gru_bwd.argtypes = [i] + [p] * 12 + [i] * 7 + [p]
         lib.gru_bwd.restype = i
         lib.gru_error_string.argtypes = [i]
         lib.gru_error_string.restype = ctypes.c_char_p
@@ -84,18 +85,22 @@ def _validate(xw, wh, bhn, h0):
 
 
 class Plan(NamedTuple):
-    rows_per_block: int  # 1, 2, 4 or 8: the forward's template instance
-    grid: int  # blocks
+    rows_per_block: int  # 1, 2, 4 or 8: the recurrent kernel's template instance
+    grid: int  # its blocks
     blocks_per_sm: int  # blocks of that instance one SM holds at once
+    chunks: int  # backward: row chunks of the weight-gradient product over hs[:T-1]
+    h0_chunks: int  # and over h0 (both 0 for the forward)
 
 
-@functools.lru_cache(maxsize=64)  # a handful of row counts per run
-def launch_plan(R: int, dtype: torch.dtype, device_index: int) -> Plan:
-    """The forward's launch for R rows (``gru_fwd_plan`` in ``csrc/gru.cu``)."""
+@functools.lru_cache(maxsize=64)  # a handful of shapes per run
+def launch_plan(bwd: bool, T: int, R: int, H: int, dtype: torch.dtype,
+                device_index: int) -> Plan:
+    """The launch of the forward's or the backward's recurrent kernel for R
+    rows (``gru_plan`` in ``csrc/gru.cu``)."""
     lib = _lib()
     out = [ctypes.c_int() for _ in Plan._fields]
-    _check(lib, lib.gru_fwd_plan(_DTYPES[dtype], R, device_index,
-                                 *(ctypes.byref(v) for v in out)), "gru_fwd plan")
+    _check(lib, lib.gru_plan(int(bwd), _DTYPES[dtype], T, R, H, device_index,
+                             *(ctypes.byref(v) for v in out)), "gru plan")
     return Plan(*(v.value for v in out))
 
 
@@ -107,7 +112,7 @@ def kernel_forward(xw, wh, bhn, h0) -> torch.Tensor:
     if T * R == 0:
         return hs
     lib = _lib()
-    plan = launch_plan(R, xw.dtype, xw.device.index)
+    plan = launch_plan(False, T, R, H, xw.dtype, xw.device.index)
     x, w, b, h = xw.contiguous(), wh.contiguous(), bhn.contiguous(), h0.float().contiguous()
     err = lib.gru_fwd(_DTYPES[xw.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(),
                       hs.data_ptr(), T, R, H, plan.rows_per_block, plan.grid,
@@ -118,28 +123,33 @@ def kernel_forward(xw, wh, bhn, h0) -> torch.Tensor:
 
 
 def kernel_backward(xw, hs, h0, wh, bhn, g):
-    """Launches the backward kernel; returns f32 (dxw, dwh, dbhn, dh0)."""
+    """Launches the backward's kernels; returns f32 (dxw, dwh, dbhn, dh0)."""
     T, R, H = _validate(xw, wh, bhn, h0)
     dev = xw.device
     if hs.shape != (T, R, H) or g.shape != (T, R, H):
         raise ValueError("GRU backward: hs and g must be (T, R, H)")
     f32 = dict(dtype=torch.float32, device=dev)
     dxw = torch.empty((T, R, 3 * H), **f32)
-    dh0 = torch.zeros((R, H), **f32)
-    dweights = torch.zeros((H * 3 * H + H,), **f32)
-    if T * R > 0:
-        lib = _lib()
-        rows = lib.gru_rows_per_block()
-        partials = torch.empty(((R + rows - 1) // rows, H * 3 * H + H), **f32)
-        x, s = xw.contiguous(), hs.to(xw.dtype).contiguous()
-        gg = g.to(xw.dtype).contiguous()
-        h, w, b = h0.float().contiguous(), wh.contiguous(), bhn.contiguous()
-        err = lib.gru_bwd(_DTYPES[xw.dtype], x.data_ptr(), s.data_ptr(), gg.data_ptr(),
-                          h.data_ptr(), w.data_ptr(), b.data_ptr(), dxw.data_ptr(),
-                          dh0.data_ptr(), partials.data_ptr(), dweights.data_ptr(), T, R, H,
-                          torch.cuda.current_stream(dev).cuda_stream)
-        _check(lib, err, "gru_bwd launch")
-        launches["gru_bwd"] += 1
+    if T * R == 0:
+        return dxw, torch.zeros((H, 3 * H), **f32), torch.zeros((H,), **f32), \
+            torch.zeros((R, H), **f32)
+    dh0 = torch.empty((R, H), **f32)
+    dweights = torch.empty((H * 3 * H + H,), **f32)
+    lib = _lib()
+    plan = launch_plan(True, T, R, H, xw.dtype, dev.index)
+    gh = torch.empty((T * R * 3 * H,), **f32)  # h_{t-1} W_h for every step
+    dgh = torch.empty((T * R * 3 * H,), **f32)  # [dpre_r | dpre_z | da_hn]
+    partials = torch.empty((plan.chunks + plan.h0_chunks, H * 3 * H + H), **f32)
+    x, s = xw.contiguous(), hs.to(xw.dtype).contiguous()
+    gg = g.to(xw.dtype).contiguous()
+    h, w, b = h0.float().contiguous(), wh.contiguous(), bhn.contiguous()
+    err = lib.gru_bwd(_DTYPES[xw.dtype], x.data_ptr(), s.data_ptr(), gg.data_ptr(),
+                      h.data_ptr(), w.data_ptr(), b.data_ptr(), dxw.data_ptr(),
+                      dh0.data_ptr(), gh.data_ptr(), dgh.data_ptr(), partials.data_ptr(),
+                      dweights.data_ptr(), T, R, H, plan.rows_per_block, plan.grid,
+                      plan.chunks, plan.h0_chunks, torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, err, "gru_bwd launch")
+    launches["gru_bwd"] += 1
     return dxw, dweights[:H * 3 * H].view(H, 3 * H), dweights[H * 3 * H:], dh0
 
 

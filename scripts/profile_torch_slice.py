@@ -17,13 +17,13 @@ whose trace took longer to parse than the run. Prints JSON lines:
   * ``profile``: the window's wall seconds (host clock between device syncs
     at its ends), summed device-kernel seconds, the device's idle share of
     the wall time, the share of device time in the port's own kernels
-    (entity attention with its backward's matrix product, GRU), and the
-    number of kernels launched (the run's env-steps/s are not printed: the
-    trace is parsed inside a training block; ``chip_smoke.py`` measures
-    them unprofiled);
-  * ``bwd_stages``: the device seconds of each stage of the entity-attention
-    backward in the window (its kernels run in a fixed order on one stream,
-    so the n-th kernel of each call is stage n);
+    (the entity attention's and the GRU's, their stages' products
+    included), and the number of kernels launched (the run's env-steps/s
+    are not printed: the trace is parsed inside a training block;
+    ``chip_smoke.py`` measures them unprofiled);
+  * ``stages``: the device seconds of each stage of the entity-attention
+    forward and backward and of the GRU backward in the window (a call's
+    kernels run in a fixed order on one stream);
   * ``top``: the device kernels with the most time (name, calls, seconds).
 The ``k=v`` arguments are config overrides, as after ``with`` on the CLI.
 Needs a CUDA device; exits non-zero without one.
@@ -41,14 +41,24 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 WAIT, WARMUP, ACTIVE = 1, 1, 3  # learner updates (training blocks)
-# the entity-attention backward's kernels in launch order (csrc/entity_attn.cu,
-# launch_bwd), each with a piece of its kernel's name
-BWD_STAGES = (("i_proj_kv", "gemm_kernel"), ("i_proj_q", "gemm_kernel"),
-              ("i_dattn", "gemm_kernel"), ("ii_per_sample", "entity_attn_bwd_sample"),
-              ("iii_dents_kv", "gemm_kernel"), ("iii_dents_q", "gemm_kernel"),
-              ("iii_dw_kv", "gemm_kernel"), ("iii_dw_q", "gemm_kernel"),
-              ("iii_dw_o", "gemm_kernel"), ("iii_db_o", "entity_attn_colsum"),
-              ("iii_chunk_sum", "entity_attn_reduce"))
+# the kernels of one call of each staged kernel in launch order (csrc/), each
+# stage with a piece of its kernel's name; the call is found by its one
+# kernel of its own (ANCHOR: its index in the call)
+STAGES = {
+    "attn_fwd": (("i_proj_kv", "gemm_kernel"), ("i_proj_q", "gemm_kernel"),
+                 ("ii_per_sample", "entity_attn_fwd_sample"), ("iii_out", "gemm_kernel")),
+    "attn_bwd": (("i_transpose_w_qkv", "entity_attn_transpose"),
+                 ("i_transpose_w_o", "entity_attn_transpose"), ("i_proj_kv", "gemm_kernel"),
+                 ("i_proj_q", "gemm_kernel"), ("i_dattn", "gemm_kernel"),
+                 ("ii_per_sample", "entity_attn_bwd_sample"), ("iii_dents_kv", "gemm_kernel"),
+                 ("iii_dents_q", "gemm_kernel"), ("iii_dw_kv", "gemm_kernel"),
+                 ("iii_dw_q", "gemm_kernel"), ("iii_dw_o", "gemm_kernel"),
+                 ("iii_db_o", "entity_attn_colsum"), ("iii_chunk_sum", "entity_attn_reduce")),
+    "gru_bwd": (("i_gh", "gemm_kernel"), ("i_gh_h0", "gemm_kernel"), ("ii_dh_chain", "gru_bwd_kernel"),
+                ("iii_dw_h", "gemm_kernel"), ("iii_dw_h_h0", "gemm_kernel"),
+                ("iii_db_hn", "gru_colsum"), ("iii_chunk_sum", "gru_reduce")),
+}
+ANCHOR = {"attn_fwd": 2, "attn_bwd": 5, "gru_bwd": 2}
 
 
 def parse(argv):
@@ -67,21 +77,29 @@ def parse(argv):
     return alg, env, t_max, overrides
 
 
-def bwd_stage_seconds(kernels):
-    """Device seconds per backward stage from (start_us, name, us) in time
-    order; None where the backward's kernels do not fall into whole calls of
-    the expected sequence."""
-    names = tuple(tag for _, tag in BWD_STAGES)
-    seq = [(n, us) for _, n, us in kernels if any(tag in n for tag in names)]
-    if not seq or len(seq) % len(BWD_STAGES):
-        return None
-    out = {stage: 0.0 for stage, _ in BWD_STAGES}
-    for i, (name, us) in enumerate(seq):
-        stage, tag = BWD_STAGES[i % len(BWD_STAGES)]
-        if tag not in name:
-            return None
-        out[stage] += us / 1e6
-    out["calls"] = len(seq) // len(BWD_STAGES)
+def stage_seconds(kernels):
+    """Device seconds per stage of each staged kernel (``STAGES``) from
+    (start_us, name, us) in time order: one stream runs a call's kernels
+    one after another, so each call is the window of its stages around its
+    anchor. A call whose window does not hold the expected kernels makes
+    that kernel's entry None."""
+    out = {}
+    for call, stages in STAGES.items():
+        anchor, tag = ANCHOR[call], stages[ANCHOR[call]][1]
+        sums, calls = {stage: 0.0 for stage, _ in stages}, 0
+        for i, (_, name, _) in enumerate(kernels):
+            if tag not in name:
+                continue
+            window = kernels[i - anchor:i - anchor + len(stages)]
+            if i < anchor or len(window) < len(stages) or any(
+                    t not in n for (_, t), (_, n, _) in zip(stages, window)):
+                sums = None
+                break
+            for (stage, _), (_, _, us) in zip(stages, window):
+                sums[stage] += us / 1e6
+            calls += 1
+        out[call] = None if sums is None else {**sums, "calls": calls,
+                                               "total": sum(sums.values())}
     return out
 
 
@@ -141,21 +159,24 @@ def main(argv) -> None:
         calls, total = by_name.get(name, (0, 0.0))
         by_name[name] = (calls + 1, total + us)
 
-    def share(*tags):
-        us = sum(t for name, (_, t) in by_name.items() if any(tag in name for tag in tags))
-        return us / dev_us if dev_us else None
+    stages = stage_seconds(kernels)
+    gru_fwd = sum(t for name, (_, t) in by_name.items() if "gru_fwd_kernel" in name) / 1e6
+
+    def share(seconds):
+        return seconds / (dev_us / 1e6) if dev_us else None
 
     print(json.dumps({"profile": {
         "card": smi, "command": "python -m refil_torch.main " + " ".join(cli),
         "window_updates": ACTIVE, "window_wall_seconds": wall,
         "device_kernel_seconds": dev_us / 1e6,
         "device_idle_share": 1.0 - dev_us / 1e6 / wall,
-        "entity_attn_share_of_device_time": share("entity_attn", "gemm_kernel"),
-        "gru_share_of_device_time": share("gru_"),
+        "entity_attn_share_of_device_time": share(sum(
+            (stages[c] or {}).get("total", 0.0) for c in ("attn_fwd", "attn_bwd"))),
+        "gru_share_of_device_time": share(gru_fwd + (stages["gru_bwd"] or {}).get("total", 0.0)),
         "kernel_launches": len(kernels),
         "run_updates": summary["updates"], "run_blocks": summary["blocks"],
     }}), flush=True)
-    print(json.dumps({"bwd_stages": bwd_stage_seconds(kernels)}), flush=True)
+    print(json.dumps({"stages": stages}), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     print(json.dumps({"top": [{"name": n[:120], "calls": c, "seconds": us / 1e6}
                               for n, (c, us) in top]}), flush=True)
