@@ -12,7 +12,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      plans of the attention calls and of the GRU forward.
   3. kernels: each kernel against its plain PyTorch version on the card, in
      float32 and bfloat16: the entity-attention forward and backward at every
-     shape of the Group Matching slice and of the combat slice (plus an
+     shape of the Group Matching slice and of the combat slice (a rollout
+     step's at each width the slices' configs give a rollout: batch_size_run,
+     and the fused loop's one test rollout of all of test_nepisode; plus an
      Nq < Ne case with a fully blocked row, a post-masked row, no pre-mask,
      and batches that are not a multiple of the block's samples, one of them
      at the combat widths), each also held to the plain version of its
@@ -24,21 +26,40 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      (``gru_backward_staged``) and called twice for identical bits; the
      attention's matrix product alone at the shapes both directions give it
      (the forward's output product with its bias, post-mask and bfloat16
-     store) and at ragged ones; and (after the slices, 4 and 5) a profile
-     of one attention forward, one attention backward and one GRU backward
-     call, which must run only the repository's kernels. Times by
-     CUDA events after warm-up: the kernel, the plain version and a PyTorch
-     yardstick (attention: matmul + scaled_dot_product_attention; GRU:
-     cuDNN ``torch.nn.GRU``, beside the hoisted input matmul plus the
-     kernel), beside the least time the card could take (``bound_ms``).
-  4. slice, Group Matching: ``refil_torch.main`` trains refil_group_matching
-     for at least 8 learner updates; checks the loss, the parameters and the
-     kernels' launch counts against the counts the run's shapes imply.
-  5. slice, combat: ``refil_torch.main`` trains the flagship refil on
-     entity_battle 3-8sz_symmetric at the config's full width for at least 4
-     learner updates; prints env-steps/s and the last metrics (with
-     battle_won_mean) and checks the four kernels' launch counts.
-  6. the ``kernels`` line and the last line ``{"ok": true, "device": ...}``.
+     store) and at ragged ones. Times by CUDA events after warm-up: the
+     kernel, the plain version and a PyTorch yardstick (attention: matmul +
+     scaled_dot_product_attention; GRU: cuDNN ``torch.nn.GRU``, beside the
+     hoisted input matmul plus the kernel), beside the least time the card
+     could take (``bound_ms``).
+  4. fused slices, the default loop: ``refil_torch.main`` trains
+     refil_group_matching (>= 8 learner updates) and the flagship refil on
+     entity_battle 3-8sz_symmetric at the config's full width (>= 2
+     dispatches of >= 2 train blocks), each block after the first of its
+     kind a CUDA graph replay; prints env-steps/s (and over the replayed
+     train blocks alone, the eager first one timed apart), the dispatches, the last
+     metrics (combat: with battle_won_mean) and each graph's capture and
+     instantiate seconds and pool size (``graphs`` lines); checks the
+     kernels' launch counts (the counts, plus each graph's recorded
+     launches times its replays less the capture's one count) against the
+     counts the run's shapes imply, and that every later block of a kind
+     was a replay of one recorded block's launches.
+  5. classic slices: the same two configurations with
+     ``use_fused_pipeline=False``, launch counts checked the same way.
+  6. graph_vs_eager: one eager combat train block under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then from
+     one cloned state and cloned generator states one train block eagerly
+     and one as a replay: ring planes and counters equal, parameters,
+     targets and optimiser state within 1e-4 of max(1, |p|); two replays
+     draw different actions.
+  7. own kernels, last (once torch.profiler has run in a process, its
+     later launches are slower): a profile of one attention forward, one
+     attention backward and one GRU backward call, which must run only the
+     repository's kernels; then one replay of the combat train block under
+     the profiler: its attention and GRU launches, counted by a kernel only
+     each launch runs, are the ones its capture recorded, and no library
+     attention or recurrence kernel (SDPA, flash, cuDNN) runs in it.
+  8. the ``kernels`` line (launches from the fused combat run) and the last
+     line ``{"ok": true, "device": ...}``.
 
 Each slice phase sets the launch counts to 0 just before it drives its path
 and reads them just after. It exits non-zero, printing no result, where CUDA
@@ -53,6 +74,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -65,32 +87,81 @@ TOL = {"fwd": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
 
 HEADS = 4
 # (slice, name, Bp, Ne, Nq, pre-mask rows, width): every entity-attention call
-# of one learner update and of a rollout step. Group Matching
-# (refil_group_matching): Ne = Nq = 8, D = E = O = 64. Combat (refil on
-# 3-8sz_symmetric: batch 32 of 151 steps, 8 agents and 8 enemies): Ne = 16,
-# Nq = 8, D = E = O = 128; the agents' pre-masks are square (Ne rows), the
-# hypernets' Na rows, their imagined masks square.
-ATTN_SHAPES = [
+# of one learner update. Group Matching (refil_group_matching): Ne = Nq = 8,
+# D = E = O = 64. Combat (refil on 3-8sz_symmetric: batch 32 of 151 steps, 8
+# agents and 8 enemies): Ne = 16, Nq = 8, D = E = O = 128; the agents'
+# pre-masks are square (Ne rows), the hypernets' Na rows, their imagined
+# masks square. ``attn_shapes`` adds the rollouts' calls.
+ATTN_LEARNER_SHAPES = [
     ("group_matching", "agent_x3", 4896, 8, 8, 8, 64),
     ("group_matching", "target_agent", 1632, 8, 8, 8, 64),
     ("group_matching", "mixer", 1600, 8, 8, 8, 64),
-    ("group_matching", "rollout", 8, 8, 8, 8, 64),
     ("combat", "agent_x3", 14496, 16, 8, 16, 128),
     ("combat", "target_agent", 4832, 16, 8, 16, 128),
     ("combat", "mixer", 4800, 16, 8, 8, 128),
     ("combat", "mixer_imagined", 4800, 16, 8, 16, 128),
     ("combat", "target_mixer", 4832, 16, 8, 8, 128),
-    ("combat", "rollout", 8, 16, 8, 16, 128),
 ]
-# (name, T, R): every GRU call of the combat slice (H = 64): the agent x3 and
-# the target agent over whole episodes, the rollout step; and a ragged one
+# a rollout step's agent call: (Ne, Nq, pre-mask rows, width, GRU rows an
+# env; None where the agent has no GRU), Bp = the rollout's envs
+ROLLOUT_CALL = {"group_matching": (8, 8, 8, 64, None), "combat": (16, 8, 16, 128, 8)}
+# (name, T, R): every GRU call of a combat learner update (H = 64): the agent
+# x3 and the target agent over whole episodes; and a ragged one.
+# ``gru_shapes`` adds the rollouts' steps.
 GRU_HIDDEN = 64
-GRU_SHAPES = [("agent_x3", 151, 768), ("target_agent", 151, 256), ("rollout", 1, 64),
-              ("ragged", 13, 37)]
+GRU_LEARNER_SHAPES = [("agent_x3", 151, 768), ("target_agent", 151, 256), ("ragged", 13, 37)]
 # the forward's rows-per-block plan picks 1, 2, 4 or 8 rows by R: a sweep
 # across it, at every T the slice uses and a ragged one
 GRU_PLAN_ROWS = (1, 37, 64, 256, 768, 1000)
 GRU_PLAN_STEPS = (1, 13, 151)
+
+
+def slice_argv(path, fused):
+    """The command line of a slice phase (the fused loop is the default)."""
+    if path == "group_matching":
+        argv = ["--config=refil_group_matching", "--env-config=group_matching", "with",
+                f"t_max={GM_T_MAX}"]
+    else:
+        argv = ["--config=refil", "--env-config=entity_battle", "with",
+                "scenario=3-8sz_symmetric", "test_nepisode=8",
+                f"t_max={CB_FUSED_T_MAX if fused else CB_T_MAX}"]
+    if not fused:
+        argv.append("use_fused_pipeline=False")
+    return argv + ["use_cuda=True",
+                   f"local_results_path={os.path.join(HERE, 'results', 'torch_smoke')}"]
+
+
+def rollout_widths(path):
+    """{name: envs} of the rollouts a slice's runs make, from its config: a
+    training rollout (and each of the classic loop's test runs) steps
+    batch_size_run envs, the fused loop's test run all of test_nepisode in
+    one rollout (``run.py:_run_fused_loop``)."""
+    from refil_torch.config import args_sanity_check, load_config
+    from refil_torch.main import parse_cli
+
+    alg, env, overrides = parse_cli(slice_argv(path, fused=True))
+    cfg = args_sanity_check(load_config(alg=alg, env=env, overrides=overrides))
+    bsr = cfg["batch_size_run"]
+    n_test = max(1, cfg["test_nepisode"] // bsr) * bsr
+    return {"rollout": bsr, **({"test_rollout": n_test} if n_test != bsr else {})}
+
+
+def attn_shapes():
+    """Every entity-attention call of the slices: a learner update's, and a
+    rollout step's at each width the slices' rollouts run at."""
+    rows = list(ATTN_LEARNER_SHAPES)
+    for path, (ne, nq, mrows, width, _) in ROLLOUT_CALL.items():
+        for tag, envs in rollout_widths(path).items():
+            rows.append((path, tag, envs, ne, nq, mrows, width))
+    return rows
+
+
+def gru_shapes():
+    """Every GRU call of the combat slice: a learner update's, and a
+    rollout step's (T = 1) at each width its rollouts run at."""
+    per_env = ROLLOUT_CALL["combat"][4]
+    return GRU_LEARNER_SHAPES + [(tag, 1, envs * per_env)
+                                 for tag, envs in rollout_widths("combat").items()]
 
 
 def emit(phase: str, **fields) -> None:
@@ -245,7 +316,7 @@ def phase_device():
     return name_power
 
 
-def phase_build():
+def phase_build(attn_rows):
     from refil_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -258,7 +329,7 @@ def phase_build():
              wall_seconds=round(wall, 2), ptxas=ptxas)
     from refil_torch.ops import entity_attn
 
-    for path, _, Bp, ne, nq, _, width in ATTN_SHAPES:
+    for path, _, Bp, ne, nq, _, width in attn_rows:
         for dtype in (torch.float32, torch.bfloat16):
             for bwd in (False, True):
                 plan = entity_attn.launch_plan(bwd, dtype, (Bp, ne, nq, width, width, width,
@@ -454,12 +525,66 @@ def phase_gemm():
                            pad=pad, seed=60 + 2 * i + pad)
 
 
-def own_kernels_only(Bp=4832, Ne=16, Nq=8, W=128, T=151, R=768):
+OWN_TAGS = ("entity_attn", "gru_", "gemm_kernel")
+# kernels of a library's attention or recurrence (SDPA, flash, cuDNN): none
+# may run in a replayed block, whose attention and GRU are the repository's
+LIBRARY_TAGS = ("flash", "fmha", "sdpa", "scaled_dot", "efficient_attention", "cudnn", "rnn",
+                "lstm")
+# one kernel of each wrapper's launch that no other launch runs
+ANCHORS = {"entity_attn_fwd": "entity_attn_fwd_sample_kernel",
+           "entity_attn_bwd": "entity_attn_bwd_sample_kernel",
+           "gru_fwd": "gru_fwd_kernel", "gru_bwd": "gru_bwd_kernel"}
+
+
+def profile_kernels(call):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+
+
+def profile_replay(pipe, ps, name_power):
+    """One replay of the captured combat train block under the profiler:
+    its attention and GRU work runs in the repository's kernels, each
+    wrapper's launches as many times as the capture recorded (counted by a
+    kernel only that launch runs), and no library attention or recurrence
+    kernel runs; the rest is PyTorch's kernels for the env, the dense layers
+    and the optimiser."""
+    rec = pipe.graphs["train"]
+    kernels = profile_kernels(lambda: pipe.run_blocks(ps, 1, train=True))
+    own = [(n, us) for _, n, us in kernels if any(t in n for t in OWN_TAGS)]
+    library = sorted({n for _, n, _ in kernels if not any(t in n for t in OWN_TAGS)
+                      and (any(t in n.lower() for t in LIBRARY_TAGS) or "attention" in n.lower())})
+    anchors = {k: sum(tag in n for _, n, _ in kernels) for k, tag in ANCHORS.items()}
+    recorded = {k: rec.launches[k] for k in ANCHORS}
+    others = {}
+    for _, n, us in kernels:
+        if not any(t in n for t in OWN_TAGS):
+            c, t = others.get(n[:70], (0, 0.0))
+            others[n[:70]] = (c + 1, t + us)
+    device_us = sum(us for _, _, us in kernels)
+    emit("own_kernels", call="combat_train_block_replay", card=name_power, traced=bool(kernels),
+         kernels=len(kernels), device_us=device_us, own_kernels=len(own),
+         own_device_us=sum(us for _, us in own), launches_by_anchor=anchors,
+         launches_recorded=recorded, library_kernels=library,
+         top_other=[{"name": n, "calls": c, "us": t} for n, (c, t) in
+                    sorted(others.items(), key=lambda kv: -kv[1][1])[:12]])
+    if not kernels or library or anchors != recorded:
+        raise AssertionError(f"the replayed train block: library kernels {library}, launches "
+                             f"{anchors} != recorded {recorded}")
+
+
+def own_kernels_only(replay=None, Bp=4832, Ne=16, Nq=8, W=128, T=151, R=768):
     """Profiles one float32 call each of the attention forward and backward
     at a combat shape and of the GRU backward at the agent's: every device
     kernel each runs must be one of csrc/'s (entity_attn*, gru_*, the
     product gemm.cuh), no cuBLAS, SDPA or PyTorch kernel. Prints the
-    per-kernel device times of each call, in launch order (its stages)."""
+    per-kernel device times of each call, in launch order (its stages).
+    With ``replay`` (pipeline, state), then ``profile_replay``."""
     from refil_torch.ops import entity_attn, gru_kernel
 
     ents, wi, wo, bo, pm, qm, gout = make_inputs(Bp, Ne, Nq, W, W, W, torch.float32, 7,
@@ -473,23 +598,16 @@ def own_kernels_only(Bp=4832, Ne=16, Nq=8, W=128, T=151, R=768):
                                                                HEADS),
         "gru_bwd": lambda: gru_kernel.kernel_backward(xw, hs, h0, wh, bhn, g),
     }
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, call in calls.items():
         call()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
-                         for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and not getattr(e, "is_user_annotation", False))
-        foreign = sorted({n for _, n, _ in kernels
-                          if not any(tag in n for tag in ("entity_attn", "gru_", "gemm_kernel"))})
+        kernels = profile_kernels(call)
+        foreign = sorted({n for _, n, _ in kernels if not any(tag in n for tag in OWN_TAGS)})
         emit("own_kernels", call=name, kernels=[{"name": n[:90], "us": us} for _, n, us in kernels],
              device_us=sum(us for _, _, us in kernels), foreign=foreign, traced=bool(kernels))
         if foreign:
             raise AssertionError(f"{name} ran kernels that are not the repository's: {foreign}")
+    if replay is not None:
+        profile_replay(*replay)
 
 
 def make_gru_inputs(T, R, H, dtype, seed):
@@ -587,10 +705,10 @@ def check_gru(tag, T, R, H, dtype, seed=0, timing=False):
     return row
 
 
-def phase_kernels():
+def phase_kernels(attn_rows, gru_rows):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (path, tag, Bp, ne, nq, mrows, w) in enumerate(ATTN_SHAPES):
+        for i, (path, tag, Bp, ne, nq, mrows, w) in enumerate(attn_rows):
             rows.append(check_case(tag, Bp, ne, nq, w, w, w, HEADS, dtype, mask_rows=mrows,
                                    seed=i, timing=True, path=path))
         # Nq < Ne, Bp not a multiple of the block's samples, a pre-mask with
@@ -602,7 +720,7 @@ def phase_kernels():
         rows.append(check_case("narrow_uneven", 3, 6, 6, 24, 32, 16, 2, dtype, seed=13))
         rows.append(check_case("combat_widths_uneven", 37, 16, 8, 128, 128, 128, HEADS, dtype,
                                mask_rows=16, seed=14))
-        for i, (tag, T, R) in enumerate(GRU_SHAPES):
+        for i, (tag, T, R) in enumerate(gru_rows):
             rows.append(check_gru(tag, T, R, GRU_HIDDEN, dtype, seed=20 + i, timing=True))
         for T in GRU_PLAN_STEPS:
             for R in GRU_PLAN_ROWS:
@@ -611,24 +729,41 @@ def phase_kernels():
     return rows
 
 
-# one refil_group_matching learner update launches 9 forward and 6 backward
-# attention calls: agent x3 (fwd+bwd), target agent (fwd), mixer chosen path
-# hyper_w_1 + V (fwd+bwd), imagined path hyper_w_1 x2 + V (fwd+bwd), target
-# mixer hyper_w_1 + V (fwd). A rollout step is one forward; a gt diagnostic is
-# two imagine passes of agent + hyper_w_1 x2 + V. The FF agent runs no GRU.
-GM_FWD_PER_ITER, GM_BWD_PER_ITER, GM_FWD_PER_DIAG = 9, 6, 8
-GM_T_MAX = 8000  # >= 21 blocks of <= 400 env steps: >= 18 learner updates
-# one refil (combat) learner update launches 15 forward and 10 backward
-# attention calls: agent x3 (fwd+bwd), target agent (fwd), mixer chosen path
-# hyper_w_1, hyper_b_1, hyper_w_final, V (fwd+bwd), imagined path hyper_w_1 x2,
-# hyper_b_1, hyper_w_final, V (fwd+bwd), target mixer 4 (fwd); and 2 GRU
-# forwards (agent x3, target agent) and 1 GRU backward. A rollout step is one
-# attention and one GRU forward (T = 1).
-CB_FWD_PER_ITER, CB_BWD_PER_ITER, CB_GRU_FWD_PER_ITER, CB_GRU_BWD_PER_ITER = 15, 10, 2, 1
-# >= 7 blocks of <= 8 x 150 env steps: the ring holds batch_size 32 episodes
-# after 4 blocks, so >= 4 learner updates of 8 iterations
+# Kernel launches a learner iteration, a rollout step and a gt diagnostic
+# make. refil_group_matching: 9 forward and 6 backward attention calls an
+# iteration (agent x3 fwd+bwd, target agent fwd, mixer chosen path
+# hyper_w_1 + V fwd+bwd, imagined path hyper_w_1 x2 + V fwd+bwd, target mixer
+# hyper_w_1 + V fwd); a diagnostic is two imagine passes of agent +
+# hyper_w_1 x2 + V; the FF agent runs no GRU. refil (combat): 15 forward and
+# 10 backward attention calls (agent x3 fwd+bwd, target agent fwd, mixer
+# chosen path hyper_w_1, hyper_b_1, hyper_w_final, V fwd+bwd, imagined path
+# hyper_w_1 x2, hyper_b_1, hyper_w_final, V fwd+bwd, target mixer 4 fwd), 2
+# GRU forwards (agent x3, target agent) and 1 GRU backward. A rollout step
+# is one attention forward, and on combat one GRU forward (T = 1).
+PER_ITER = {"group_matching": {"entity_attn_fwd": 9, "entity_attn_bwd": 6},
+            "combat": {"entity_attn_fwd": 15, "entity_attn_bwd": 10, "gru_fwd": 2,
+                       "gru_bwd": 1}}
+PER_STEP = {"group_matching": {"entity_attn_fwd": 1},
+            "combat": {"entity_attn_fwd": 1, "gru_fwd": 1}}
+PER_DIAG = {"group_matching": {"entity_attn_fwd": 8}, "combat": {}}
+GM_T_MAX = 8000  # 20 blocks of 400 env steps, 4 of them warm-up: 16 learner updates
+# blocks of <= 8 x 150 env steps run while t_env <= 7200: >= 7 blocks; the
+# ring holds batch_size 32 episodes after 4 blocks, so the classic loop,
+# which trains from the 4th block on, makes >= 4 learner updates of 8
+# iterations
 CB_T_MAX = 7200
+# the fused combat run: >= 2 dispatches of >= 2 train blocks after the 4
+# warm-up blocks (a dispatch holds remaining // 1200 blocks, a power of two)
+CB_FUSED_T_MAX = 9600
 KERNEL_LAUNCHES = ("entity_attn_fwd", "entity_attn_bwd", "gru_fwd", "gru_bwd")
+
+
+def expected_launches(path, iterations, rollout_steps, diag_calls):
+    out = dict.fromkeys(KERNEL_LAUNCHES + ("entity_attn_gemm",), 0)
+    for table, n in ((PER_ITER, iterations), (PER_STEP, rollout_steps), (PER_DIAG, diag_calls)):
+        for k, per in table[path].items():
+            out[k] += per * n
+    return out
 
 
 def reset_launches():
@@ -638,10 +773,18 @@ def reset_launches():
     gru_kernel.reset_launches()
 
 
-def read_launches():
+def read_launches(graphs=None):
+    """The launches made since the last reset. The wrappers count in Python,
+    where a capture records a block's launches without launching and a
+    replay runs none of it: so each graph adds its recorded launches times
+    its replays less the one count its capture left."""
     from refil_torch.ops import entity_attn, gru_kernel
 
-    return {**entity_attn.launches, **gru_kernel.launches}
+    out = {**entity_attn.launches, **gru_kernel.launches}
+    for g in (graphs or {}).values():
+        for k, n in g["launches"].items():
+            out[k] += n * (g["replays"] - 1)
+    return out
 
 
 def run_slice(path, argv, name_power, min_updates):
@@ -652,60 +795,188 @@ def run_slice(path, argv, name_power, min_updates):
     summary = tmain.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches(summary.get("graphs"))
     loss = summary["last_metrics"].get("loss", float("nan"))
-    row = dict(path=path, command="python -m refil_torch.main " + " ".join(argv),
+    per_iter = summary["iterations"] // max(summary["updates"], 1)
+    expected = expected_launches(path, summary["iterations"], summary["episode_limit"]
+                                 * (summary["blocks"] + summary["test_blocks"]),
+                                 summary["diag_calls"])
+    row = dict(path=path, loop=summary["loop"],
+               command="python -m refil_torch.main " + " ".join(argv),
                wall_seconds=wall, card=name_power, env_steps_per_s=summary["env_steps_per_s"],
                train_seconds=summary["train_seconds"], t_env=summary["t_env"],
                blocks=summary["blocks"], test_blocks=summary["test_blocks"],
                updates=summary["updates"], iterations=summary["iterations"],
                diag_calls=summary["diag_calls"], last_metrics=summary["last_metrics"],
                last_logged=summary["last_logged"],
-               params_max_abs_change=summary["params_max_abs_change"], launches=launches)
+               params_max_abs_change=summary["params_max_abs_change"], launches=launches,
+               expected_launches=expected)
+    if summary["loop"] == "fused":
+        row["dispatches"] = summary["dispatches"]
+        # every replayed train block: the train dispatches less the eager
+        # first train block and the capture
+        train = [d for d in summary["dispatches"] if d["train"]]
+        seconds = sum(d["replay_seconds"] for d in train)
+        blocks = row["replayed_train_blocks"] = sum(d["replays"] for d in train)
+        row["replayed_train_env_steps_per_s"] = (
+            sum(d["replay_env_steps"] for d in train) / seconds if blocks else None)
+        row["replayed_train_seconds_per_block"] = seconds / blocks if blocks else None
+    emit("slice", **row)
     if summary["updates"] < min_updates:
         raise AssertionError(f"{path}: only {summary['updates']} learner updates ran")
     if not math.isfinite(loss):
         raise AssertionError(f"{path}: loss is not finite: {loss}")
     if not summary["params_max_abs_change"] > 0:
         raise AssertionError(f"{path}: training did not change the parameters")
-    return summary, launches, row
+    if launches != expected or min(launches[k] for k in PER_ITER[path]) <= 0:
+        raise AssertionError(f"{path}: kernel launches {launches} != expected {expected}")
+    if summary["loop"] == "fused":
+        check_graphs(path, summary, per_iter, name_power)
+    return summary, launches
 
 
-def phase_group_matching(name_power):
-    out_dir = os.path.join(HERE, "results", "torch_smoke")
-    argv = ["--config=refil_group_matching", "--env-config=group_matching", "with",
-            f"t_max={GM_T_MAX}", "use_cuda=True", f"local_results_path={out_dir}"]
-    summary, launches, row = run_slice("group_matching", argv, name_power, 8)
-    it = summary["iterations"]
-    steps = summary["episode_limit"] * (summary["blocks"] + summary["test_blocks"])
-    expected = {"entity_attn_fwd": GM_FWD_PER_ITER * it + steps
-                + GM_FWD_PER_DIAG * summary["diag_calls"],
-                "entity_attn_bwd": GM_BWD_PER_ITER * it, "gru_fwd": 0, "gru_bwd": 0,
-                "entity_attn_gemm": 0}
-    emit("slice", **row, expected_launches=expected)
-    if launches != expected or min(launches["entity_attn_fwd"], launches["entity_attn_bwd"]) <= 0:
-        raise AssertionError(f"group_matching: kernel launches {launches} != expected {expected}")
+def check_graphs(path, summary, per_iter, name_power):
+    """The fused run replayed every block after the first of its kind, and
+    each capture recorded one block's launches."""
+    graphs = summary["graphs"]
+    warm = summary["blocks"] - summary["updates"]
+    T = summary["episode_limit"]
+    want = {"warm": (warm - 2, expected_launches(path, 0, T, 0)),
+            "train": (summary["updates"] - 2,
+                      expected_launches(path, per_iter, T, int(summary["diag_calls"] > 0)))}
+    emit("graphs", path=path, card=name_power, **graphs)
+    for kind, (replays, launches) in want.items():
+        if replays < 1 and kind == "warm":
+            continue
+        g = graphs.get(kind)
+        # the first block of a kind runs eagerly, the second is captured and
+        # replayed, every later one replayed
+        if g is None or g["replays"] != replays + 1 or g["launches"] != launches:
+            raise AssertionError(f"{path}: {kind} graph {g} != {replays + 1} replays of "
+                                 f"{launches}")
+
+
+def phase_fused(path, name_power):
+    argv = slice_argv(path, fused=True)
+    if path == "group_matching":
+        summary, launches = run_slice(path, argv, name_power, 8)
+    else:
+        summary, launches = run_slice(path, argv, name_power, 4)
+        multi = [d for d in summary["dispatches"] if d["train"] and d["blocks"] >= 2]
+        if len(multi) < 2:
+            raise AssertionError(f"combat: fewer than 2 dispatches of >= 2 train blocks: "
+                                 f"{summary['dispatches']}")
+        if "battle_won_mean" not in summary["last_logged"]:
+            raise AssertionError("combat: the runner logged no battle_won_mean")
     return launches
 
 
-def phase_combat(name_power):
-    out_dir = os.path.join(HERE, "results", "torch_smoke")
-    argv = ["--config=refil", "--env-config=entity_battle", "with", "scenario=3-8sz_symmetric",
-            "test_nepisode=8", f"t_max={CB_T_MAX}", "use_cuda=True",
-            f"local_results_path={out_dir}"]
-    summary, launches, row = run_slice("combat", argv, name_power, 4)
-    it = summary["iterations"]
-    steps = summary["episode_limit"] * (summary["blocks"] + summary["test_blocks"])
-    expected = {"entity_attn_fwd": CB_FWD_PER_ITER * it + steps,
-                "entity_attn_bwd": CB_BWD_PER_ITER * it,
-                "gru_fwd": CB_GRU_FWD_PER_ITER * it + steps,
-                "gru_bwd": CB_GRU_BWD_PER_ITER * it, "entity_attn_gemm": 0}
-    emit("slice", **row, expected_launches=expected)
-    if "battle_won_mean" not in summary["last_logged"]:
-        raise AssertionError("combat: the runner logged no battle_won_mean")
-    if launches != expected or min(launches[k] for k in KERNEL_LAUNCHES) <= 0:
-        raise AssertionError(f"combat: kernel launches {launches} != expected {expected}")
-    return launches
+def phase_classic(path, name_power):
+    argv = slice_argv(path, fused=False)
+    if path == "group_matching":
+        run_slice(path, argv, name_power, 8)
+    else:
+        summary, _ = run_slice(path, argv, name_power, 4)
+        if "battle_won_mean" not in summary["last_logged"]:
+            raise AssertionError("combat: the runner logged no battle_won_mean")
+
+
+def state_tensors(ps):
+    """Every tensor a block changes: the ring, the counters, the parameters,
+    the targets and the optimiser state."""
+    out = {f"ring.{k}": v for k, v in ps.ring.items()}
+    for n in ("buffer_index", "episodes_in_buffer", "t_env", "episode", "last_target_episode"):
+        out[n] = getattr(ps, n)
+    learner = ps.train
+    for i, (p, t) in enumerate(zip(learner.params, learner.target_params)):
+        out[f"param.{i}"], out[f"target.{i}"] = p.data, t.data
+        for k, v in learner.optimiser.state[p].items():
+            out[f"opt.{i}.{k}"] = v
+    return out
+
+
+def phase_graph_vs_eager(name_power):
+    """One combat train block eagerly and one as a graph replay, from one
+    cloned state and cloned generator states: the ring planes and counters
+    equal, the parameters, targets and optimiser state within 1e-4 of
+    max(1, |p|) (PyTorch's backward kernels may sum with atomics). Before
+    it, one eager train block under ``set_sync_debug_mode("error")``: the
+    block waits for the device nowhere. After it, two replays must draw
+    different actions (the generators are registered with the graph).
+    Returns the pipeline and its state, for ``own_kernels_only``."""
+    from refil_torch import config as tconfig
+    from refil_torch import run as trun
+    from refil_torch.core.pipeline import FusedPipeline
+
+    cfg = tconfig.load_config(alg="refil", env="entity_battle",
+                              overrides=["scenario=3-8sz_symmetric", "use_cuda=True"])
+    args = tconfig.config_to_args(tconfig.args_sanity_check(cfg))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    reset_launches()
+    runner, learner, gens = trun.build_training(args, None, dev)
+    pipe = FusedPipeline(runner, learner, args.buffer_size, args)
+    ps = pipe.init_state(gens["sample"])
+    warm = pipe.warmup_blocks()
+    for _ in range(warm):
+        pipe.run_blocks(ps, 1, train=False)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe.block_device(ps, train=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    snap = {k: v.clone() for k, v in state_tensors(ps).items()}
+    gen_states = {k: g.get_state() for k, g in ps.generators.items()}
+    eager_stats = pipe.run_blocks(ps, 1, train=True)  # the first of run_blocks: eager
+    eager = {k: v.clone() for k, v in state_tensors(ps).items()}
+    for k, v in state_tensors(ps).items():
+        v.copy_(snap[k])
+    for k, g in ps.generators.items():
+        g.set_state(gen_states[k])
+    graph_stats = pipe.run_blocks(ps, 1, train=True)  # captured, then replayed
+    if "train" not in pipe.graphs:
+        raise AssertionError("graph_vs_eager: the train block was not captured")
+    graph = state_tensors(ps)
+    exact = {k: torch.equal(eager[k], graph[k]) for k in eager
+             if not k.startswith(("param", "target", "opt"))}
+    scaled = {}
+    for k in eager:
+        if k.startswith(("param", "target", "opt")):
+            group = k.split(".")[0] + ("" if not k.startswith("opt") else "." + k.split(".")[2])
+            err = scaled_err(graph[k], eager[k])
+            scaled[group] = max(scaled.get(group, 0.0), err)
+    stats_equal = all(np.array_equal(eager_stats[k], graph_stats[k])
+                      for k in ("ep_returns", "ep_lengths", "epsilon", "t_env"))
+    metrics_err = {k: abs(float(graph_stats["metrics"][k][0] - eager_stats["metrics"][k][0]))
+                   / max(1.0, abs(float(eager_stats["metrics"][k][0])))
+                   for k in eager_stats["metrics"]}
+
+    def last_block_actions():
+        end = int(ps.buffer_index) or pipe.buffer_size
+        return ps.ring["actions"][end - pipe.batch_size_run:end].clone()
+
+    first = last_block_actions()
+    pipe.run_blocks(ps, 1, train=True)
+    differ = float((first != last_block_actions()).float().mean())
+
+    graphs = {k: g.summary() for k, g in pipe.graphs.items()}
+    launches = read_launches(graphs)
+    T = runner.episode_limit
+    n_train = 1 + 1 + 1 + 1  # sync-checked, eager, captured and replayed, replayed
+    expected = {k: warm * a + n_train * b for (k, a), b in zip(
+        expected_launches("combat", 0, T, 0).items(),
+        expected_launches("combat", args.training_iters, T, 0).values())}
+    tol = 1e-4
+    ok = (all(exact.values()) and all(v <= tol for v in scaled.values()) and stats_equal
+          and differ > 0 and launches == expected)
+    emit("graph_vs_eager", card=name_power, ok=ok, exact=exact, scaled_err=scaled, tol=tol,
+         stats_equal=stats_equal, metrics_scaled_err=metrics_err,
+         replays_actions_differ_share=differ, sync_free_eager_block=True, graphs=graphs,
+         launches=launches, expected_launches=expected)
+    if not ok:
+        raise AssertionError("graph_vs_eager: the replayed block disagrees with the eager one")
+    return pipe, ps
 
 
 def kernels_line(rows, launches_by_path):
@@ -741,14 +1012,18 @@ def main(argv) -> None:
         raise SystemExit("chip_smoke: run it from a checkout of the repository")
     sys.path.insert(0, HERE)
     name_power = phase_device()
-    phase_build()
-    rows = phase_kernels()
+    attn_rows, gru_rows = attn_shapes(), gru_shapes()
+    phase_build(attn_rows)
+    rows = phase_kernels(attn_rows, gru_rows)
+    replay = None
     if not kernels_only:
-        launches = {"group_matching": phase_group_matching(name_power),
-                    "combat": phase_combat(name_power)}
+        launches = {path: phase_fused(path, name_power) for path in ("group_matching", "combat")}
+        for path in ("group_matching", "combat"):
+            phase_classic(path, name_power)
+        replay = (*phase_graph_vs_eager(name_power), name_power)
     # last: once torch.profiler has run in a process, every later kernel
     # launch there is slower, and the slices' env-steps/s would show it
-    own_kernels_only()
+    own_kernels_only(replay)
     if kernels_only:
         return
     print(name_power, flush=True)

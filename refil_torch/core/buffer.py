@@ -21,6 +21,13 @@ import torch
 FEATURE_RING_KEYS = frozenset({"entities", "obs", "state", "actions_onehot"})
 
 
+def storage_dtype(key: str, dtype: torch.dtype, feature_dtype: str) -> torch.dtype:
+    """The ring's storage dtype of plane ``key`` under ``buffer_dtype``."""
+    if feature_dtype == "bfloat16" and key in FEATURE_RING_KEYS and dtype == torch.float32:
+        return torch.bfloat16
+    return dtype
+
+
 class ReplayBuffer:
     def __init__(self, template: Dict[str, torch.Tensor], buffer_size: int, seed: int = 0,
                  device=None, feature_dtype: str = "float32"):
@@ -32,15 +39,9 @@ class ReplayBuffer:
         first = next(iter(template.values()))
         self.device = torch.device(device) if device is not None else first.device
         self._out_dtypes = {k: v.dtype for k, v in template.items()}
-
-        def store_dtype(k, dt):
-            if feature_dtype == "bfloat16" and k in FEATURE_RING_KEYS and dt == torch.float32:
-                return torch.bfloat16
-            return dt
-
         self.data = {
-            k: torch.zeros((buffer_size,) + tuple(x.shape[1:]), dtype=store_dtype(k, x.dtype),
-                           device=self.device)
+            k: torch.zeros((buffer_size,) + tuple(x.shape[1:]),
+                           dtype=storage_dtype(k, x.dtype, feature_dtype), device=self.device)
             for k, x in template.items()
         }
         self.index = 0

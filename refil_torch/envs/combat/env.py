@@ -206,6 +206,14 @@ class EntityBattle:
         self.weapon_range = torch.as_tensor(U.WEAPON_RANGE, **f32)
         self.cooldown_frames = torch.as_tensor(U.COOLDOWN_FRAMES, **f32)
         self.is_medivac_t = torch.as_tensor(U.IS_MEDIVAC, device=dev)
+        # the step's constant vectors live on the device from here, so a step
+        # copies nothing from the host (a CUDA graph captures it)
+        self.move_dirs = torch.tensor([[0, 0], [0, 0], [0, 1], [0, -1], [1, 0], [-1, 0]], **f32)
+        self.axis_x = torch.tensor([1.0, 0.0], **f32)
+        self.axis_y = torch.tensor([0.0, 1.0], **f32)
+        m = self.move_amount / 2.0
+        self.move_probe = torch.tensor([[0.0, m], [0.0, -m], [m, 0.0], [-m, 0.0]], **f32)
+        self.noop_only = torch.arange(self.n_actions, device=dev) == 0
 
         # within-group spawn spread: golden-angle spiral over a unit's rank
         i = np.arange(max(self.max_na, self.max_ne))
@@ -352,8 +360,8 @@ class EntityBattle:
         if self.trivial_pathing:
             return full
         ok = self._walkable(full) | self.ignores_pathing_t[types]
-        x_only = (pos + disp * torch.tensor([1.0, 0.0], device=pos.device)).clamp(lo, hi)
-        y_only = (pos + disp * torch.tensor([0.0, 1.0], device=pos.device)).clamp(lo, hi)
+        x_only = (pos + disp * self.axis_x).clamp(lo, hi)
+        y_only = (pos + disp * self.axis_y).clamp(lo, hi)
         ok_x, ok_y = self._walkable(x_only), self._walkable(y_only)
         return torch.where(ok[..., None], full, torch.where(
             ok_x[..., None], x_only, torch.where(ok_y[..., None], y_only, pos)))
@@ -374,8 +382,7 @@ class EntityBattle:
         can = [pos[..., 1] + m < self.map_size - 1.0, pos[..., 1] - m > 1.0,
                pos[..., 0] + m < self.map_size - 1.0, pos[..., 0] - m > 1.0]  # n, s, e, w
         if not self.trivial_pathing:
-            dxy = torch.tensor([[0.0, m], [0.0, -m], [m, 0.0], [-m, 0.0]], device=dev)
-            walk = self._walkable(pos[:, :, None, :] + dxy[None, None])
+            walk = self._walkable(pos[:, :, None, :] + self.move_probe[None, None])
             walk = walk | self.ignores_pathing_t[state.a_type][..., None]
             can = [c & walk[..., i] for i, c in enumerate(can)]
         for i, c in enumerate(can):
@@ -394,9 +401,7 @@ class EntityBattle:
             tag_oh_a = F.one_hot(state.a_tags - self.n_tags_e, self.n_tags_a).float()
             avail[:, :, 6 + self.n_tags_e:] = torch.bmm(target_ok.float(), tag_oh_a) > 0
         # dead and inactive agents: only no-op
-        noop_only = torch.zeros((self.n_actions,), dtype=torch.bool, device=dev)
-        noop_only[0] = True
-        return torch.where(a_alive[:, :, None], avail, noop_only[None, None])
+        return torch.where(a_alive[:, :, None], avail, self.noop_only[None, None])
 
     # ------------------------------------------------------------------
     def step(self, state: CombatState, actions: torch.Tensor,
@@ -434,16 +439,13 @@ class EntityBattle:
     def step_state(self, state: CombatState, actions: torch.Tensor):
         """Combat dynamics only: (state, reward, done, info)."""
         Na, Ne = self.max_na, self.max_ne
-        dev = state.t.device
         a_alive = (state.a_health > 0) & state.a_active
         e_alive = (state.e_health > 0) & state.e_active
         actions = actions.long()
 
         # ---- decode agent actions ----
         is_move = (actions >= 2) & (actions <= 5)
-        dirs = torch.tensor([[0, 0], [0, 0], [0, 1], [0, -1], [1, 0], [-1, 0]],
-                            dtype=torch.float32, device=dev)
-        move_dir = dirs[actions.clamp(0, 5)]
+        move_dir = self.move_dirs[actions.clamp(0, 5)]
         tag = (actions - 6).clamp(0, self.n_tags_e + self.n_tags_a - 1)
         is_attack = actions >= 6
         is_medivac = self.is_medivac_t[state.a_type]

@@ -8,7 +8,9 @@ loss -> global-norm clip -> RMSprop. The target networks are deep copies,
 hard-synced every ``target_update_interval`` episodes.
 
 Optimiser: ``torch.optim.RMSprop(lr, alpha=optim_alpha, eps=optim_eps)``,
-the rule the JAX package's optax chain mimics. The clip is optax's
+the rule the JAX package's optax chain mimics; on CUDA it is
+``capturable`` (its step count on the card), so the fused pipeline's CUDA
+graph can capture it; the CPU keeps the default. The clip is optax's
 ``clip_by_global_norm``: gradients are left alone when the global norm is
 below ``grad_norm_clip`` and become ``g / norm * grad_norm_clip`` otherwise
 (``torch.nn.utils.clip_grad_norm_`` would scale by ``clip / (norm + 1e-6)``).
@@ -77,9 +79,13 @@ class QLearner:
         if getattr(args, "weight_decay", 0):
             raise NotImplementedError("weight_decay is not ported yet (ROADMAP queue A item 4)")
         self.optimiser = torch.optim.RMSprop(self.params, lr=args.lr, alpha=args.optim_alpha,
-                                             eps=args.optim_eps)
+                                             eps=args.optim_eps,
+                                             capturable=self.device.type == "cuda")
         self.target_mac = copy.deepcopy(mac)
         self.target_mixer = copy.deepcopy(self.mixer)
+        self.target_params = list(self.target_mac.parameters())
+        if self.target_mixer is not None:
+            self.target_params += list(self.target_mixer.parameters())
         self.last_target_update_episode = 0
         self.log_stats_t = -getattr(args, "learner_log_interval", 2000) - 1
 
@@ -160,17 +166,25 @@ class QLearner:
         self.optimiser.step()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train_iters(self, batches, t_env: int, episode_num: int,
-                    imagine_draws: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+    def updates(self, batches, imagine_draws: Optional[Sequence] = None
+                ) -> Dict[str, torch.Tensor]:
         """The ``training_iters`` updates in sequence on ``batches`` stacked on
-        a leading iteration axis (``ReplayBuffer.sample_many``); then the
-        target sync on its episode cadence. Returns the last update's metrics.
+        a leading iteration axis, with no host sync (``_train_iters_impl`` of
+        the JAX learner). Returns the last update's metrics.
         ``imagine_draws[i]`` = (group_probs, groupA) for update i (tests)."""
         n_iters = next(iter(batches.values())).shape[0]
         metrics = {}
         for i in range(n_iters):
             batch = {k: v[i] for k, v in batches.items()}
             metrics = self.train_step(batch, None if imagine_draws is None else imagine_draws[i])
+        return metrics
+
+    def train_iters(self, batches, t_env: int, episode_num: int,
+                    imagine_draws: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+        """The classic loop's training: ``updates`` on ``batches``
+        (``ReplayBuffer.sample_many``), then the target sync on its host
+        episode cadence. Returns the last update's metrics."""
+        metrics = self.updates(batches, imagine_draws)
         self._maybe_update_targets(episode_num)
         return metrics
 
@@ -181,16 +195,26 @@ class QLearner:
 
     def update_targets(self) -> None:
         """Hard copy of the live networks into the targets."""
-        self.target_mac.agent.load_state_dict(self.mac.agent.state_dict())
-        if self.mixer is not None:
-            self.target_mixer.load_state_dict(self.mixer.state_dict())
+        self.sync_targets_where(torch.tensor(True, device=self.device))
+
+    @torch.no_grad()
+    def sync_targets_where(self, do_sync: torch.Tensor) -> None:
+        """The fused pipeline's target sync: each target parameter becomes
+        the live one where the 0-d bool ``do_sync`` holds, in place on the
+        device (no host sync; ``pipeline.py:273-288`` of the JAX package)."""
+        for p, t in zip(self.params, self.target_params):
+            t.copy_(torch.where(do_sync, p, t))
 
     # --- diagnostics: gt-factor in-group proportion ---
+    @property
+    def has_gt_diagnostics(self) -> bool:
+        return isinstance(self.mixer, LinearFlexQMixer) and self.is_imagine
+
     @torch.no_grad()
     def gt_diagnostics(self, batch, imagine_draws=None):
         """(ingroup_prop, gt_ingroup_prop) for imagine agents with the linear
         mixer (Group Matching, ``test_gt_factors``); None otherwise."""
-        if not isinstance(self.mixer, LinearFlexQMixer) or not self.is_imagine:
+        if not self.has_gt_diagnostics:
             return None
         mac = self.mac
         rep_actions = torch.cat([batch["actions"][:, :-1]] * 3, dim=0)

@@ -12,7 +12,7 @@ reference exactly:
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +25,13 @@ def _mask_like(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Zero the batch rows of ``x`` where ``flag`` is False."""
     f = flag.reshape(flag.shape + (1,) * (x.dim() - flag.dim()))
     return torch.where(f, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _to_host(stats):
+    """A rollout's device stats as numpy arrays (nested dicts kept)."""
+    if isinstance(stats, dict):
+        return {k: _to_host(v) for k, v in stats.items()}
+    return stats.cpu().numpy()
 
 
 def _select(flag: torch.Tensor, new, old):
@@ -52,7 +59,7 @@ class VectorRunner:
         self.t_env = 0
         self.schedule = DecayThenFlatSchedule(args.epsilon_start, args.epsilon_finish,
                                               args.epsilon_anneal_time, decay="linear")
-        self.epsilon = self.schedule.eval(0)
+        self.epsilon = self.schedule.eval_host(0)
         if getattr(args, "action_selector", "epsilon_greedy") != "epsilon_greedy" or \
                 getattr(args, "agent_output_type", "q") != "q":
             raise NotImplementedError("only the epsilon-greedy selector over Q-values is "
@@ -69,12 +76,14 @@ class VectorRunner:
         self.log_train_stats_t = -1000000
 
     @torch.no_grad()
-    def rollout(self, epsilon: float, batch_size: int, test: bool = False,
+    def rollout(self, epsilon: Union[float, torch.Tensor], batch_size: int, test: bool = False,
                 env_draws: Optional[dict] = None):
-        """One block of ``batch_size`` episodes. ``env_draws`` =
-        {"reset": draws, "step": [draws per step]} feeds the env explicit
-        randomness (tests); otherwise the runner's generator draws it.
-        Returns (batch dict (B, T+1, ...), stats dict of host arrays)."""
+        """One block of ``batch_size`` episodes; ``epsilon`` a float or a 0-d
+        tensor on the device. ``env_draws`` = {"reset": draws, "step": [draws
+        per step]} feeds the env explicit randomness (tests); otherwise the
+        runner's generator draws it. Returns (batch dict (B, T+1, ...), stats
+        dict of device tensors). Nothing here waits for the device, so the
+        fused pipeline's CUDA graph can capture it."""
         env, mac, gen = self.env, self.mac, self.generator
         B, T = batch_size, self.episode_limit
         dev = mac.device
@@ -136,24 +145,40 @@ class VectorRunner:
             terminated=seq(outs["terminated"])[..., None],
             filled=filled,
         )
-        stats = {"ep_returns": ep_ret.cpu().numpy(), "ep_lengths": ep_len.cpu().numpy(),
-                 "final_info": {k: v.cpu().numpy() for k, v in final_info.items()}}
+        stats = {"ep_returns": ep_ret, "ep_lengths": ep_len, "final_info": final_info}
         return batch, stats
 
-    def run(self, test_mode: bool = False) -> Dict[str, torch.Tensor]:
+    def batch_spec(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape of one episode, dtype) of each plane ``rollout`` returns,
+        from a one-env reset on a throwaway generator (no agent forward, no
+        draw from the runner's generator)."""
+        T1, Na, A = self.episode_limit + 1, self.n_agents, self.n_actions
+        _, obs = self.env.reset(1, generator=torch.Generator(device=self.mac.device))
+        spec = {k: ((T1,) + tuple(v.shape[1:]), v.dtype) for k, v in obs.items()}
+        spec.update(actions=((T1, Na), torch.int64), actions_onehot=((T1, Na, A), torch.float32),
+                    reward=((T1, 1), torch.float32), terminated=((T1, 1), torch.bool),
+                    filled=((T1, 1), torch.bool))
+        return spec
+
+    def run(self, test_mode: bool = False, batch_size: Optional[int] = None
+            ) -> Dict[str, torch.Tensor]:
         """One episode block with the scheduled epsilon (0 in test mode);
-        accounts its stats and returns the episode batch."""
-        self.epsilon = self.schedule.eval(self.t_env)
+        accounts its stats and returns the episode batch. ``batch_size``
+        overrides ``batch_size_run`` for this call: the fused loop runs all
+        of ``test_nepisode`` as one wider rollout."""
+        self.epsilon = self.schedule.eval_host(self.t_env)
         eps = 0.0 if test_mode else self.epsilon
-        batch, stats = self.rollout(eps, self.batch_size, test=test_mode)
+        batch, stats = self.rollout(eps, self.batch_size if batch_size is None else batch_size,
+                                    test=test_mode)
+        stats = _to_host(stats)
         if not test_mode:
             self.t_env += int(stats["ep_lengths"].sum())
         self.account_block(stats, test_mode=test_mode)
         return batch
 
     def account_block(self, stats, test_mode: bool = False) -> None:
-        """Fold one block's host stats into the accumulators and log on the
-        reference's cadence."""
+        """Fold one block's stats, fetched to the host (numpy arrays), into
+        the accumulators and log on the reference's cadence."""
         block_bs = int(stats["ep_returns"].shape[0])
         cur_stats = self.test_stats if test_mode else self.train_stats
         cur_returns = self.test_returns if test_mode else self.train_returns

@@ -1,25 +1,35 @@
-"""Where the time of a PyTorch port slice goes, on one GPU.
+"""Where the time of a PyTorch port slice goes, on one GPU, in both loops.
 
-    python scripts/profile_torch_slice.py [--config=ALG] [--env-config=ENV] [T_MAX] [k=v ...]
+    python scripts/profile_torch_slice.py [--loop=fused|classic] [--config=ALG]
+        [--env-config=ENV] [T_MAX] [k=v ...]
     python scripts/profile_torch_slice.py 4000      # Group Matching (the default slice)
     python scripts/profile_torch_slice.py --config=refil --env-config=entity_battle 7200 \\
         scenario=3-8sz_symmetric                    # the combat slice
 
 Trains the slice through ``refil_torch.main`` (default
 ``--config=refil_group_matching --env-config=group_matching``, ``t_max`` 4000)
-and profiles a window of its training blocks with ``torch.profiler``'s
-schedule: the blocks of the first WAIT learner updates run unprofiled, the
-next WARMUP are traced and dropped, and the next ACTIVE are kept (a block
-ends where its updates end; the run needs WAIT + WARMUP + ACTIVE updates). A
-window keeps the trace small: the whole combat run is ~1.1M kernel launches,
-whose trace took longer to parse than the run. Prints JSON lines:
+and profiles a window of its training with ``torch.profiler``'s schedule.
+Without ``--loop`` it runs both loops, each in a process of its own (once
+the profiler has run in a process, that process's later launches are
+slower), and prints both windows:
+  * classic (``use_fused_pipeline=False``): the blocks of the first WAIT
+    learner updates run unprofiled, the next WARMUP are traced and dropped,
+    and the next ACTIVE are kept (the run needs WAIT + WARMUP + ACTIVE
+    updates);
+  * fused (the default loop; on the card its blocks are CUDA graph
+    replays), with ``max_blocks_per_dispatch=2`` unless the overrides set
+    it: the first train dispatch (the eager first train block and the
+    capture) runs unprofiled, the next is traced and dropped, and the next
+    2 are kept (the run needs 4 train dispatches).
+A window keeps the trace small: the whole combat run is ~1.1M kernel
+launches, whose trace took longer to parse than the run. Prints JSON lines:
   * ``device``: the card's name and power limit (nvidia-smi);
-  * ``profile``: the window's wall seconds (host clock between device syncs
-    at its ends), summed device-kernel seconds, the device's idle share of
-    the wall time, the share of device time in the port's own kernels
-    (the entity attention's and the GRU's, their stages' products
-    included), and the number of kernels launched (the run's env-steps/s
-    are not printed: the trace is parsed inside a training block;
+  * ``profile``: the loop, the window's blocks, wall seconds (host clock
+    between device syncs at its ends), summed device-kernel seconds, the
+    device's idle share of the wall time, the share of device time in the
+    port's own kernels (the entity attention's and the GRU's, their stages'
+    products included), and the number of kernels launched (the run's
+    env-steps/s are not printed: the trace is parsed inside the run;
     ``chip_smoke.py`` measures them unprofiled);
   * ``stages``: the device seconds of each stage of the entity-attention
     forward and backward and of the GRU backward in the window (a call's
@@ -40,7 +50,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-WAIT, WARMUP, ACTIVE = 1, 1, 3  # learner updates (training blocks)
+# the window (wait, warmup, active), in steps of the profiler's schedule:
+# the classic loop steps once a learner update (a training block), the fused
+# loop once a train dispatch, which holds FUSED_DISPATCH blocks here so that
+# a short run has dispatches enough for a window of whole dispatches
+WINDOW = {"classic": (1, 1, 3), "fused": (1, 1, 2)}
+FUSED_DISPATCH = 2
 # the kernels of one call of each staged kernel in launch order (csrc/), each
 # stage with a piece of its kernel's name; the call is found by its one
 # kernel of its own (ANCHOR: its index in the call)
@@ -62,9 +77,13 @@ ANCHOR = {"attn_fwd": 2, "attn_bwd": 5, "gru_bwd": 2}
 
 
 def parse(argv):
-    alg, env, t_max, overrides = "refil_group_matching", "group_matching", 4000, []
+    alg, env, t_max, overrides, loop = "refil_group_matching", "group_matching", 4000, [], None
     for tok in argv:
-        if tok.startswith("--config="):
+        if tok.startswith("--loop="):
+            loop = tok.split("=", 1)[1]
+            if loop not in WINDOW:
+                raise SystemExit(f"profile_torch_slice: --loop is fused or classic, not {loop!r}")
+        elif tok.startswith("--config="):
             alg = tok.split("=", 1)[1]
         elif tok.startswith("--env-config="):
             env = tok.split("=", 1)[1]
@@ -74,7 +93,7 @@ def parse(argv):
             overrides.append(tok)
         else:
             raise SystemExit(f"profile_torch_slice: unrecognised argument {tok!r}")
-    return alg, env, t_max, overrides
+    return alg, env, t_max, overrides, loop
 
 
 def stage_seconds(kernels):
@@ -104,9 +123,14 @@ def stage_seconds(kernels):
 
 
 def main(argv) -> None:
-    alg, env, t_max, overrides = parse(argv)
+    alg, env, t_max, overrides, loop = parse(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA device")
+    if loop is None:  # each loop in a process of its own
+        for lp in WINDOW:
+            subprocess.run([sys.executable, os.path.abspath(__file__), f"--loop={lp}", *argv],
+                           check=True)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,44 +138,64 @@ def main(argv) -> None:
     print(json.dumps({"device": smi}), flush=True)
 
     from refil_torch import main as tmain
+    from refil_torch import run as trun
     from refil_torch.learners.q_learner import QLearner
     from refil_torch.ops import _build
 
     _build.build_all()  # the build is set-up, outside the profiled window
     out_dir = os.path.join("results", "torch_profile")
     cli = [f"--config={alg}", f"--env-config={env}", "with", f"t_max={t_max}",
-           f"local_results_path={out_dir}", *overrides]
+           f"local_results_path={out_dir}", f"use_fused_pipeline={loop == 'fused'}"]
+    if loop == "fused" and not any(o.startswith("max_blocks_per_dispatch=") for o in overrides):
+        cli.append(f"max_blocks_per_dispatch={FUSED_DISPATCH}")
+    cli += overrides
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     window = {}
 
-    def keep(prof):  # called once, when the ACTIVE updates have been traced
+    def keep(prof):  # called once, when the ACTIVE steps have been traced
         window["kernels"] = sorted(
             (e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False))
 
+    wait, warmup, active = WINDOW[loop]
     prof = torch.profiler.profile(
         activities=acts, on_trace_ready=keep,
-        schedule=torch.profiler.schedule(wait=WAIT, warmup=WARMUP, active=ACTIVE, repeat=1))
-    marks = []  # host clock after each update's device work
-    train_iters = QLearner.train_iters
+        schedule=torch.profiler.schedule(wait=wait, warmup=warmup, active=active, repeat=1))
+    marks = []  # (host clock after a step's device work, training blocks in the step)
 
-    def traced_train_iters(self, *args, **kwargs):
-        metrics = train_iters(self, *args, **kwargs)
+    def step(blocks):
         torch.cuda.synchronize()
-        marks.append(time.perf_counter())
+        marks.append((time.perf_counter(), blocks))
         prof.step()
-        return metrics
 
-    QLearner.train_iters = traced_train_iters
+    if loop == "classic":
+        train_iters = QLearner.train_iters
+
+        def traced_train_iters(self, *args, **kwargs):
+            metrics = train_iters(self, *args, **kwargs)
+            step(1)
+            return metrics
+
+        QLearner.train_iters = traced_train_iters
+    else:
+        class TracedPipeline(trun.FusedPipeline):
+            def run_blocks(self, ps, n_blocks, train=True):
+                stats = super().run_blocks(ps, n_blocks, train=train)
+                if train:
+                    step(n_blocks)
+                return stats
+
+        trun.FusedPipeline = TracedPipeline
     with prof:
         summary = tmain.main(cli)
         torch.cuda.synchronize()
     if "kernels" not in window:
-        raise SystemExit(f"profile_torch_slice: {summary['updates']} learner updates ran; the "
-                         f"window needs {WAIT + WARMUP + ACTIVE} (raise t_max)")
-    first = WAIT + WARMUP
-    wall = marks[first + ACTIVE - 1] - marks[first - 1]
+        raise SystemExit(f"profile_torch_slice: {len(marks)} profiler steps ran; the window "
+                         f"needs {wait + warmup + active} (raise t_max)")
+    first = wait + warmup
+    wall = marks[first + active - 1][0] - marks[first - 1][0]
+    blocks = sum(n for _, n in marks[first:first + active])
     kernels = window["kernels"]
     dev_us = sum(us for _, _, us in kernels)
     by_name = {}
@@ -166,15 +210,17 @@ def main(argv) -> None:
         return seconds / (dev_us / 1e6) if dev_us else None
 
     print(json.dumps({"profile": {
-        "card": smi, "command": "python -m refil_torch.main " + " ".join(cli),
-        "window_updates": ACTIVE, "window_wall_seconds": wall,
+        "card": smi, "loop": summary["loop"],
+        "command": "python -m refil_torch.main " + " ".join(cli),
+        "window_blocks": blocks, "window_wall_seconds": wall,
         "device_kernel_seconds": dev_us / 1e6,
         "device_idle_share": 1.0 - dev_us / 1e6 / wall,
         "entity_attn_share_of_device_time": share(sum(
             (stages[c] or {}).get("total", 0.0) for c in ("attn_fwd", "attn_bwd"))),
         "gru_share_of_device_time": share(gru_fwd + (stages["gru_bwd"] or {}).get("total", 0.0)),
-        "kernel_launches": len(kernels),
+        "kernel_launches": len(kernels), "kernel_launches_per_block": len(kernels) / blocks,
         "run_updates": summary["updates"], "run_blocks": summary["blocks"],
+        "graphs": summary.get("graphs"),
     }}), flush=True)
     print(json.dumps({"stages": stages}), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]

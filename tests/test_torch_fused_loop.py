@@ -1,0 +1,98 @@
+"""refil_torch's fused loop (``run.py:_run_fused_loop``) on the CPU.
+
+* Multi-block dispatch logs the same series as single-block dispatch: the
+  same keys at the same t_env with the same values (a mirror of
+  ``tests/test_fused_loop.py``; the ``time_*`` phase timers are wall-clock
+  and skipped). On the CPU the blocks run eagerly, so the values are equal.
+* ``use_fused_pipeline=False`` and ``buffer_cpu_only`` run the classic loop.
+* The features the fused loop does not port (the mesh, checkpoints,
+  preemption) still raise.
+"""
+import json
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from refil_torch import main as tmain
+from refil_torch import run as trun
+from refil_torch.core.pipeline import FusedPipeline
+
+ARGS = ["--config=refil_group_matching", "--env-config=group_matching", "with", "t_max=2000",
+        "seed=5", "env_args.n_agents=4", "env_args.episode_limit=10", "batch_size_run=4",
+        "batch_size=8", "buffer_size=16", "test_nepisode=8", "test_interval=1000",
+        "attn_embed_dim=16", "hypernet_embed=16", "mixing_embed_dim=8", "training_iters=2",
+        "use_cuda=False"]
+
+
+def _run(tmp_path, sub, monkeypatch, *extra):
+    calls = []
+
+    class Capture(FusedPipeline):
+        def run_blocks(self, ps, n_blocks, train=True):
+            calls.append(n_blocks)
+            return super().run_blocks(ps, n_blocks, train=train)
+
+    monkeypatch.setattr(trun, "FusedPipeline", Capture)
+    summary = tmain.main(ARGS + [f"local_results_path={tmp_path / sub}", *extra])
+    mdir = os.path.join(str(tmp_path / sub), "metrics")
+    with open(os.path.join(mdir, os.listdir(mdir)[0])) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return rows, calls, summary
+
+
+def test_multi_block_dispatch_matches_single_block(tmp_path, monkeypatch):
+    rows_multi, calls_multi, s_multi = _run(tmp_path, "multi", monkeypatch,
+                                            "max_blocks_per_dispatch=32")
+    rows_single, calls_single, s_single = _run(tmp_path, "single", monkeypatch,
+                                               "max_blocks_per_dispatch=1")
+    # the multi-block run fused blocks; the control did not
+    assert max(calls_multi) > 1, calls_multi
+    assert max(calls_single) == 1 and len(calls_multi) < len(calls_single)
+    assert s_multi["loop"] == s_single["loop"] == "fused"
+    assert sum(calls_multi) == sum(calls_single) == s_multi["blocks"]
+    assert [d["blocks"] for d in s_multi["dispatches"]] == calls_multi
+    # warm-up (ceil(8 / 4) = 2 blocks) and train blocks never share a dispatch
+    assert [d["train"] for d in s_multi["dispatches"][:2]] == [False, False]
+    assert s_multi["updates"] == s_multi["blocks"] - 2
+    assert s_multi["iterations"] == 2 * s_multi["updates"]
+    assert s_multi["diag_calls"] == s_multi["updates"]  # test_gt_factors: every train block
+    assert s_multi["graphs"] == {}  # the CPU runs the blocks eagerly
+
+    def series(rows):
+        return [(r["key"], r["t"], r["value"]) for r in rows if not r["key"].startswith("time_")]
+
+    sm, ss = series(rows_multi), series(rows_single)
+    assert len(sm) == len(ss) and any(r["key"] == "time_block_ms" for r in rows_multi)
+    for (k_m, t_m, v_m), (k_s, t_s, v_s) in zip(sm, ss):
+        assert k_m == k_s and t_m == t_s, ((k_m, t_m), (k_s, t_s))
+        np.testing.assert_allclose(v_m, v_s, rtol=1e-5, atol=1e-7, err_msg=k_m)
+
+
+@pytest.mark.parametrize("extra,loop", [((), "fused"), (("use_fused_pipeline=False",), "classic"),
+                                        (("buffer_cpu_only=True",), "classic")])
+def test_loop_choice(tmp_path, extra, loop):
+    summary = tmain.main(ARGS[:3] + ["t_max=100", "env_args.episode_limit=10",
+                                     "batch_size_run=4", "batch_size=4", "training_iters=2",
+                                     "test_nepisode=4", "use_cuda=False",
+                                     f"local_results_path={tmp_path}", *extra])
+    assert summary["loop"] == loop
+    assert summary["updates"] >= 1 and summary["iterations"] == 2 * summary["updates"]
+    assert np.isfinite(summary["last_metrics"]["loss"]) and summary["params_max_abs_change"] > 0
+    assert ("dispatches" in summary) == (loop == "fused")
+
+
+@pytest.mark.parametrize("extra", ["mesh_shape={'data':2}", "save_model=True",
+                                   "handle_preemption=True"])
+def test_unported_features_still_raise(tmp_path, extra):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmain.main(ARGS + [f"local_results_path={tmp_path}", extra])
+
+
+def test_pipeline_refuses_a_mesh():
+    args = types.SimpleNamespace(batch_size_run=4)
+    learner = types.SimpleNamespace(device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        FusedPipeline(None, learner, 16, args, mesh=object())

@@ -245,6 +245,12 @@ def test_mac_last_action_block_matches_jax():
 
 @pytest.mark.parametrize("decay", ["linear", "exp"])
 def test_schedule_matches_jax(decay):
-    for t in (0, 1, 2500, 5000, 10 ** 6):
-        ref = JaxSchedule(1.0, 0.05, 5000, decay=decay).eval_host(t)
-        assert DecayThenFlatSchedule(1.0, 0.05, 5000, decay=decay).eval(t) == ref
+    """The host schedule equals the JAX one's ``eval_host``; the tensor one
+    equals its traced ``eval`` in float32, bit for bit."""
+    jsched = JaxSchedule(1.0, 0.05, 5000, decay=decay)
+    sched = DecayThenFlatSchedule(1.0, 0.05, 5000, decay=decay)
+    for t in (0, 1, 2500, 4999, 5000, 10 ** 6):
+        assert sched.eval_host(t) == jsched.eval_host(t)
+        got = sched.eval(torch.tensor(float(t)))
+        assert got.dtype == torch.float32 and got.dim() == 0
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jsched.eval(jnp.float32(t))))
