@@ -14,7 +14,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      float32 and bfloat16: the entity-attention forward and backward at every
      shape of the Group Matching slice and of the combat slice (a rollout
      step's at each width the slices' configs give a rollout: batch_size_run,
-     and the fused loop's one test rollout of all of test_nepisode; plus an
+     the fused loop's one test rollout of all of test_nepisode and the eval
+     phase's rollout of the combat config's own test_nepisode; plus an
      Nq < Ne case with a fully blocked row, a post-masked row, no pre-mask,
      and batches that are not a multiple of the block's samples, one of them
      at the combat widths), each also held to the plain version of its
@@ -50,19 +51,37 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      one cloned state and cloned generator states one train block eagerly
      and one as a replay: ring planes and counters equal, parameters,
      targets and optimiser state within 1e-4 of max(1, |p|); two replays
-     draw different actions.
-  7. own kernels, last (once torch.profiler has run in a process, its
+     draw different actions. Then restore in place: a checkpoint of the
+     live state (ring included) restored after another replay keeps every
+     tensor's storage and gives back the saved values and generator states
+     exactly, and one replay from it equals one eager block from it (same
+     gate; the generators' states after each equal).
+  7. resume: a fused combat run A saves (``save_model``, with the ring)
+     and run B resumes from A's first checkpoint after a dispatch of
+     replays to the same t_max: B's first block trains and every loss B
+     logs equals A's at the same t_env within 1e-5 of max(1, |loss|); the
+     checkpoint's bytes and save and load seconds.
+  8. preempt: the CLI as a subprocess at its default dispatch size,
+     SIGTERM after its first logged loss: exit 0, the preemption line, a
+     checkpoint, and a resume from it that trains at once and logs past
+     it; the subprocess's log tail printed where a check fails.
+  9. eval: an eval-only run of A's checkpoint over every scenario of
+     3-8sz_symmetric at the config's 160 test episodes a scenario: its
+     stats, seconds a scenario and launches (the attention at Bp 160 and
+     the GRU at T 1, R 1,280 are among phase 3's shapes).
+  10. own kernels, last (once torch.profiler has run in a process, its
      later launches are slower): a profile of one attention forward, one
      attention backward and one GRU backward call, which must run only the
      repository's kernels; then one replay of the combat train block under
      the profiler: its attention and GRU launches, counted by a kernel only
      each launch runs, are the ones its capture recorded, and no library
      attention or recurrence kernel (SDPA, flash, cuDNN) runs in it.
-  8. the ``kernels`` line (launches from the fused combat run) and the last
+  11. the ``kernels`` line (launches from the fused combat run) and the last
      line ``{"ok": true, "device": ...}``.
 
-Each slice phase sets the launch counts to 0 just before it drives its path
-and reads them just after. It exits non-zero, printing no result, where CUDA
+Each phase that drives a path (4, 5, 6, both runs of 7, 8's resume, 9)
+sets the launch counts to 0 just before it and reads them just after (8's
+preempted run is another process, whose counts this one cannot read). It exits non-zero, printing no result, where CUDA
 is not available or the ``refil_torch`` package is not beside it.
 """
 from __future__ import annotations
@@ -70,6 +89,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -78,6 +99,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+SMOKE_RESULTS = os.path.join(HERE, "results", "torch_smoke")
 
 # the card's peaks used for bound_ms (H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -127,23 +149,45 @@ def slice_argv(path, fused):
                 f"t_max={CB_FUSED_T_MAX if fused else CB_T_MAX}"]
     if not fused:
         argv.append("use_fused_pipeline=False")
-    return argv + ["use_cuda=True",
-                   f"local_results_path={os.path.join(HERE, 'results', 'torch_smoke')}"]
+    return argv + ["use_cuda=True", f"local_results_path={SMOKE_RESULTS}"]
+
+
+def eval_argv(checkpoint_path, load_step):
+    """The command line of the eval phase: an eval-only combat run over every
+    scenario of 3-8sz_symmetric at the config's own test_nepisode."""
+    return ["--config=refil", "--env-config=entity_battle", "with", "scenario=3-8sz_symmetric",
+            "evaluate=True", "eval_all_scen=True", f"checkpoint_path={checkpoint_path}",
+            f"load_step={load_step}", "use_cuda=True",
+            f"eval_path={os.path.join(SMOKE_RESULTS, 'eval', 'eval.json')}",
+            f"local_results_path={os.path.join(SMOKE_RESULTS, 'eval')}"]
+
+
+def n_test_episodes(argv):
+    """The width of one test rollout of the fused loop (or of an eval-only
+    run) under ``argv``: all of test_nepisode, a multiple of batch_size_run
+    (``run.py``)."""
+    from refil_torch.config import args_sanity_check, load_config
+    from refil_torch.main import parse_cli
+
+    alg, env, overrides = parse_cli(argv)
+    cfg = args_sanity_check(load_config(alg=alg, env=env, overrides=overrides))
+    bsr = cfg["batch_size_run"]
+    return bsr, max(1, cfg["test_nepisode"] // bsr) * bsr
 
 
 def rollout_widths(path):
     """{name: envs} of the rollouts a slice's runs make, from its config: a
     training rollout (and each of the classic loop's test runs) steps
     batch_size_run envs, the fused loop's test run all of test_nepisode in
-    one rollout (``run.py:_run_fused_loop``)."""
-    from refil_torch.config import args_sanity_check, load_config
-    from refil_torch.main import parse_cli
-
-    alg, env, overrides = parse_cli(slice_argv(path, fused=True))
-    cfg = args_sanity_check(load_config(alg=alg, env=env, overrides=overrides))
-    bsr = cfg["batch_size_run"]
-    n_test = max(1, cfg["test_nepisode"] // bsr) * bsr
-    return {"rollout": bsr, **({"test_rollout": n_test} if n_test != bsr else {})}
+    one rollout (``run.py:_run_fused_loop``), and on combat the eval phase's
+    rollout all of the config's own test_nepisode."""
+    bsr, n_test = n_test_episodes(slice_argv(path, fused=True))
+    out = {"rollout": bsr, **({"test_rollout": n_test} if n_test != bsr else {})}
+    if path == "combat":
+        n_eval = n_test_episodes(eval_argv("", 0))[1]
+        if n_eval not in out.values():
+            out["eval_rollout"] = n_eval
+    return out
 
 
 def attn_shapes():
@@ -787,9 +831,12 @@ def read_launches(graphs=None):
     return out
 
 
-def run_slice(path, argv, name_power, min_updates):
+def run_slice(path, argv, name_power, min_updates, phase="slice"):
     from refil_torch import main as tmain
 
+    # no preemption guard in this process: a SIGTERM sent to the smoke must
+    # stop it, not cut one run short and let the later phases go on
+    argv = [*argv, "handle_preemption=False"]
     reset_launches()  # count only this path's launches
     t0 = time.perf_counter()
     summary = tmain.main(argv)
@@ -821,7 +868,7 @@ def run_slice(path, argv, name_power, min_updates):
         row["replayed_train_env_steps_per_s"] = (
             sum(d["replay_env_steps"] for d in train) / seconds if blocks else None)
         row["replayed_train_seconds_per_block"] = seconds / blocks if blocks else None
-    emit("slice", **row)
+    emit(phase, **row)
     if summary["updates"] < min_updates:
         raise AssertionError(f"{path}: only {summary['updates']} learner updates ran")
     if not math.isfinite(loss):
@@ -846,9 +893,13 @@ def check_graphs(path, summary, per_iter, name_power):
                       expected_launches(path, per_iter, T, int(summary["diag_calls"] > 0)))}
     emit("graphs", path=path, card=name_power, **graphs)
     for kind, (replays, launches) in want.items():
+        g = graphs.get(kind)
+        if replays < 0:  # one block of its kind, run eagerly: nothing captured
+            if g is not None:
+                raise AssertionError(f"{path}: a {kind} graph for one block: {g}")
+            continue
         if replays < 1 and kind == "warm":
             continue
-        g = graphs.get(kind)
         # the first block of a kind runs eagerly, the second is captured and
         # replayed, every later one replayed
         if g is None or g["replays"] != replays + 1 or g["launches"] != launches:
@@ -976,7 +1027,259 @@ def phase_graph_vs_eager(name_power):
          launches=launches, expected_launches=expected)
     if not ok:
         raise AssertionError("graph_vs_eager: the replayed block disagrees with the eager one")
+    check_restore_in_place(pipe, ps, name_power)
     return pipe, ps
+
+
+def check_restore_in_place(pipe, ps, name_power, tol=1e-4):
+    """After the train graph's capture: a checkpoint of the live state, ring
+    included, is written (``run._save_checkpoint``), one more replay moves
+    the state on, and the checkpoint is restored (``run._load_checkpoint``,
+    ``run.restore_pipeline_state``): every tensor keeps its storage and
+    gets back the saved values exactly, the generators their states. Then
+    one replay from the restored state against one eager block from it
+    (restored again): ring and counters equal, parameters, targets and
+    optimiser state within ``tol`` of max(1, |p|), and the generators'
+    states after each equal (a replay advances them as an eager block does)."""
+    from refil_torch import run as trun
+
+    path = fresh_dir(os.path.join(SMOKE_RESULTS, "restore_in_place"))
+    torch.cuda.synchronize()
+    saved = {k: v.clone() for k, v in state_tensors(ps).items()}
+    saved_gens = {k: g.get_state() for k, g in ps.generators.items()}
+    info = trun._save_checkpoint(path, ps.train, pstate=ps, include_buffer=True)
+    pipe.run_blocks(ps, 1, train=True)  # a replay: the live state moves on
+    ptrs = {k: v.data_ptr() for k, v in state_tensors(ps).items()}
+
+    def restore():
+        t0 = time.perf_counter()
+        trun.restore_pipeline_state(ps, trun._load_checkpoint(path, ps.train))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def gen_states():
+        return {k: g.get_state() for k, g in ps.generators.items()}
+
+    load_seconds = restore()
+    live = state_tensors(ps)
+    in_place = set(live) == set(ptrs) and all(live[k].data_ptr() == ptrs[k] for k in live)
+    exact = (all(torch.equal(live[k], saved[k]) for k in saved)
+             and all(torch.equal(v, saved_gens[k]) for k, v in gen_states().items()))
+    replays_before = pipe.graphs["train"].replays
+    pipe.run_blocks(ps, 1, train=True)
+    replayed = pipe.graphs["train"].replays == replays_before + 1
+    by_replay = {k: v.clone() for k, v in state_tensors(ps).items()}
+    gens_replay = gen_states()
+    restore()
+    pipe.block_device(ps, train=True)
+    torch.cuda.synchronize()
+    by_eager = state_tensors(ps)
+    gens_equal = all(torch.equal(v, gens_replay[k]) for k, v in gen_states().items())
+    ring_counters_equal = all(torch.equal(by_eager[k], by_replay[k]) for k in by_eager
+                              if not k.startswith(("param", "target", "opt")))
+    scaled = max(scaled_err(by_replay[k], by_eager[k]) for k in by_eager
+                 if k.startswith(("param", "target", "opt")))
+    ok = in_place and exact and replayed and gens_equal and ring_counters_equal and scaled <= tol
+    emit("restore_in_place", card=name_power, ok=ok, checkpoint_bytes=info["bytes"],
+         save_seconds=info["seconds"], load_seconds=load_seconds, tensors_kept_storage=in_place,
+         restored_exact=exact, replayed=replayed, generator_states_equal=gens_equal,
+         ring_counters_equal=ring_counters_equal, params_scaled_err=scaled, tol=tol)
+    shutil.rmtree(path, ignore_errors=True)
+    if not ok:
+        raise AssertionError("restore_in_place: a replay from a restored state disagrees with "
+                             "an eager block from it")
+
+
+def resume_argv(tag, t_max, *extra):
+    """A fused combat run at full width that logs every learner update."""
+    return ["--config=refil", "--env-config=entity_battle", "with", "scenario=3-8sz_symmetric",
+            "test_nepisode=8", f"t_max={t_max}", "learner_log_interval=1", "use_cuda=True",
+            f"local_results_path={os.path.join(SMOKE_RESULTS, tag)}", *extra]
+
+
+def fresh_dir(path):
+    """Removes ``path`` and what it holds, raising where it cannot: a rerun
+    in this checkout must not read the last run's files."""
+    if os.path.lexists(path):
+        shutil.rmtree(path)
+    return path
+
+
+def logged(results_dir, key):
+    """[(t, value)] of ``key`` in a run's metrics JSONL; a line still being
+    written (no newline yet) is left for the next read."""
+    mdir = os.path.join(results_dir, "metrics")
+    rows = []
+    for fn in (os.listdir(mdir) if os.path.isdir(mdir) else []):
+        with open(os.path.join(mdir, fn)) as f:
+            rows += [json.loads(line) for line in f if line.endswith("\n")]
+    return sorted((r["t"], r["value"]) for r in rows if r["key"] == key)
+
+
+def checkpoint_dir(results_dir):
+    """The one run token's directory of checkpoints under ``results_dir``."""
+    root = os.path.join(results_dir, "models")
+    (token,) = os.listdir(root)
+    return os.path.join(root, token)
+
+
+# the resume phase: run A saves at t_env ~ 400 (after its first dispatch),
+# then every RESUME_SAVE_INTERVAL steps, and at its end; random play takes
+# ~440 env steps a block, so the second save lands after the first train
+# dispatch that replays (the warm-up ends at ~1,760, the first train block
+# runs eagerly, the second is captured and replayed); run B resumes there
+RESUME_T_MAX = 6000
+RESUME_SAVE_INTERVAL = 2400
+
+
+def phase_resume(name_power):
+    """Run A (fused combat, save_model with the ring) and run B, resumed
+    from A's first checkpoint after a dispatch of graph replays, to the same
+    t_max: B's first block trains (the ring was restored), and every loss B
+    logs equals A's at the same t_env, within 1e-5 of max(1, |loss|) (A's
+    blocks there are replays, B's first is eager). Each run's launches are
+    checked as a slice's. Returns (checkpoint directory, step) for the eval
+    phase."""
+    a_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "resume_A"))
+    b_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "resume_B"))
+    save = ["save_model=True", f"save_model_interval={RESUME_SAVE_INTERVAL}",
+            "checkpoint_buffer=True"]
+    sa, _ = run_slice("combat", resume_argv("resume_A", RESUME_T_MAX, *save), name_power, 4,
+                      phase="resume_run")
+    replayed_end, t = None, 0
+    for d in sa["dispatches"]:
+        t += d["env_steps"]
+        if d["train"] and d["replays"] and replayed_end is None:
+            replayed_end = t
+    steps = [int(os.path.basename(x["path"])) for x in sa["saves"]]
+    after = [st for st in steps if replayed_end is not None and replayed_end <= st < sa["t_env"]]
+    if not after:
+        raise AssertionError(f"resume: no checkpoint after the first replayed train dispatch "
+                             f"(saves {steps}, replays end at {replayed_end})")
+    step = after[0]
+    ckpt = checkpoint_dir(a_dir)
+    sb, _ = run_slice("combat", resume_argv("resume_B", RESUME_T_MAX, f"checkpoint_path={ckpt}",
+                                            f"load_step={step}"), name_power, 2,
+                      phase="resume_run")
+    tail_a = [r for r in logged(a_dir, "loss") if r[0] > step]
+    tail_b = [r for r in logged(b_dir, "loss") if r[0] > step]
+    same_t = [t for t, _ in tail_a] == [t for t, _ in tail_b]
+    diffs = [abs(va - vb) / max(1.0, abs(va)) for (_, va), (_, vb) in zip(tail_a, tail_b)]
+    first_train = sb["dispatches"][0]["train"]
+    saved = next(x for x in sa["saves"] if int(os.path.basename(x["path"])) == step)
+    ok = bool(tail_a) and same_t and max(diffs) <= 1e-5 and first_train
+    emit("resume", card=name_power, ok=ok, resume_step=step, saves=sa["saves"],
+         checkpoint_bytes=saved["bytes"], save_seconds=saved["seconds"],
+         load_seconds=sb["restored"]["seconds"], losses_compared=len(tail_a),
+         same_t_env=same_t, max_scaled_loss_diff=max(diffs) if diffs else None,
+         max_abs_loss_diff=max((abs(va - vb) for (_, va), (_, vb) in zip(tail_a, tail_b)),
+                               default=None),
+         bit_equal=tail_a == tail_b, b_first_dispatch_trains=first_train, tol=1e-5)
+    if not ok:
+        raise AssertionError("resume: the resumed run's losses disagree with the unbroken run's")
+    # keep only the checkpoint the eval phase loads: each holds the 2.5 GB ring
+    for st in steps:
+        if st != step:
+            shutil.rmtree(os.path.join(ckpt, str(st)), ignore_errors=True)
+    return ckpt, step
+
+
+def phase_preempt(name_power, deadline_s=300):
+    """The CLI as a subprocess (fused combat at its default dispatch size,
+    handle_preemption by default): SIGTERM once it has logged a loss; it
+    must exit 0 saying it was preempted, with a checkpoint, and a resume
+    from it (in this process) must train at once (the checkpoint held the
+    ring) and log a loss past the preemption t_env. The subprocess's log
+    tail is printed whenever a check fails."""
+    a_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "preempt_A"))
+    b_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "preempt_B"))
+    log_path = os.path.join(SMOKE_RESULTS, "preempt_A.log")
+    os.makedirs(SMOKE_RESULTS, exist_ok=True)
+    cmd = [sys.executable, "-m", "refil_torch.main", *resume_argv("preempt_A", 10 ** 7)]
+    t0 = time.perf_counter()
+    rc = t_signal = t_exit = None
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            # a_dir was empty at the start: any loss there is this run's
+            while not logged(a_dir, "loss") and proc.poll() is None:
+                if time.perf_counter() - t0 > deadline_s:
+                    break
+                time.sleep(0.5)
+            if proc.poll() is None and logged(a_dir, "loss"):
+                t_signal = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=deadline_s)
+                t_exit = time.perf_counter()
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as f:
+        text = f.read()
+    root = os.path.join(a_dir, "models")
+    tokens = os.listdir(root) if os.path.isdir(root) else []
+    steps = ([int(n) for n in os.listdir(os.path.join(root, tokens[0])) if n.isdigit()]
+             if len(tokens) == 1 else [])
+    saved = (t_signal is not None and rc == 0 and "Preempted at t_env=" in text
+             and bool(steps))
+    row = dict(card=name_power, rc=rc, signalled=t_signal is not None,
+               seconds_to_first_loss=None if t_signal is None else t_signal - t0,
+               seconds_signal_to_exit=None if t_exit is None else t_exit - t_signal,
+               checkpoint_steps=steps)
+    if not saved:
+        emit("preempt", ok=False, **row, log_tail=text[-3000:])
+        raise AssertionError("preempt: SIGTERM after the first loss did not give exit 0, "
+                             "the preemption line and a checkpoint (log tail above)")
+    ckpt, preempt_t = os.path.join(root, tokens[0]), max(steps)
+    sb, launches = run_slice("combat", resume_argv("preempt_B", preempt_t + 1,
+                                                   f"checkpoint_path={ckpt}"), name_power, 1,
+                             phase="resume_run")
+    past = [t for t, _ in logged(b_dir, "loss") if t > preempt_t]
+    ok = sb["dispatches"][0]["train"] and bool(past)
+    emit("preempt", ok=ok, **row, preempt_t_env=preempt_t,
+         checkpoint_bytes=os.path.getsize(os.path.join(ckpt, str(preempt_t), "state.pt")),
+         resume_first_dispatch_trains=sb["dispatches"][0]["train"], losses_past_preempt=past,
+         resume_launches=launches, log_tail=None if ok else text[-3000:])
+    if not ok:
+        raise AssertionError("preempt: the resume from the preemption checkpoint did not train "
+                             "at once and past it")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_eval(name_power, ckpt, step):
+    """An eval-only run of run A's checkpoint over every scenario of
+    3-8sz_symmetric, each one greedy rollout of the config's test_nepisode
+    envs on that scenario: finite stats for every scenario, and the launches
+    one attention forward and one GRU forward a step of each rollout."""
+    from refil_torch import main as tmain
+
+    argv = eval_argv(ckpt, step)
+    fresh_dir(os.path.join(SMOKE_RESULTS, "eval"))
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = tmain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    res, secs = summary["eval"], summary["eval_seconds"]
+    steps = summary["episode_limit"] * len(secs)
+    expected = expected_launches("combat", 0, steps, 0)
+    with open(os.path.join(SMOKE_RESULTS, "eval", "eval.json")) as f:
+        written = json.load(f)
+    finite = all(math.isfinite(v) for r in res.values() for v in r.values())
+    ok = (summary["loop"] == "evaluate" and summary["restored"]["t_env"] == step and finite
+          and written == res and len(res) == len(secs) > 1 and launches == expected)
+    emit("eval", card=name_power, ok=ok, command="python -m refil_torch.main " + " ".join(argv),
+         wall_seconds=wall, scenarios=len(res), episodes_per_scenario=summary["eval_episodes"],
+         seconds_per_scenario=secs,
+         battle_won_mean={k: r.get("test_battle_won_mean") for k, r in res.items()},
+         launches=launches, expected_launches=expected)
+    if not ok:
+        raise AssertionError("eval: the eval-only run failed its checks")
+    shutil.rmtree(ckpt, ignore_errors=True)
 
 
 def kernels_line(rows, launches_by_path):
@@ -1021,6 +1324,9 @@ def main(argv) -> None:
         for path in ("group_matching", "combat"):
             phase_classic(path, name_power)
         replay = (*phase_graph_vs_eager(name_power), name_power)
+        ckpt, step = phase_resume(name_power)
+        phase_preempt(name_power)
+        phase_eval(name_power, ckpt, step)
     # last: once torch.profiler has run in a process, every later kernel
     # launch there is slower, and the slices' env-steps/s would show it
     own_kernels_only(replay)

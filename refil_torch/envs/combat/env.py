@@ -141,6 +141,7 @@ class EntityBattle:
                 "(SC2 '7'-'9', focus-fire)", self.difficulty, sorted(_DIFF_TIER))
         self.enemy_tier = _DIFF_TIER.get(self.difficulty, 2)
         self.sc = compile_scenarios(scenario_dict)
+        self.scenario_names = self.sc.names
         self.rotate = bool(scenario_dict.get("rotate", False))
         self.ally_centered = bool(scenario_dict.get("ally_centered", False))
         self.separation = float(scenario_dict.get("separation", 10))

@@ -3,12 +3,15 @@ Port of ``refil_tpu/learners/q_learner.py``.
 
 One update: whole-episode forward -> chosen Qs -> the REFIL ×3 split ->
 double-Q target from the live net's argmax -> live and target mixing ->
-1-step target r + γ(1−term)·Q_tot_target -> masked MSE + λ-weighted imagined
-loss -> global-norm clip -> RMSprop. The target networks are deep copies,
-hard-synced every ``target_update_interval`` episodes.
+1-step target r + γ(1−term)·Q_tot_target (or TD(λ) returns under
+``td_lambda``) -> masked MSE + λ-weighted imagined loss -> global-norm clip
+-> RMSprop. The target networks are deep copies, hard-synced every
+``target_update_interval`` episodes.
 
-Optimiser: ``torch.optim.RMSprop(lr, alpha=optim_alpha, eps=optim_eps)``,
-the rule the JAX package's optax chain mimics; on CUDA it is
+Optimiser: ``torch.optim.RMSprop(lr, alpha=optim_alpha, eps=optim_eps,
+weight_decay=weight_decay)``, the rule the JAX package's optax chain
+(clip -> ``add_decayed_weights`` -> rmsprop) mimics: RMSprop adds wd·p to
+the gradient after the manual clip, as the chain does; on CUDA it is
 ``capturable`` (its step count on the card), so the fused pipeline's CUDA
 graph can capture it; the CPU keeps the default. The clip is optax's
 ``clip_by_global_norm``: gradients are left alone when the global norm is
@@ -18,12 +21,13 @@ below ``grad_norm_clip`` and become ``g / norm * grad_norm_clip`` otherwise
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from ..controllers.mac import compute_dtype
 from ..modules.mixers import MIXER_REGISTRY, FlexQMixer, LinearFlexQMixer, VDNMixer
+from ..utils.rl_utils import build_td_lambda_targets
 
 NEG = -9999999.0  # Q of an unavailable action in the double-Q argmax
 
@@ -42,9 +46,6 @@ class QLearner:
         self.generator = generator
         self.n_agents = env_info["n_agents"]
         self.is_imagine = "imagine" in args.agent
-        if getattr(args, "td_lambda", None) is not None:
-            raise NotImplementedError("td_lambda (TD(lambda) targets, utils/rl_utils.py) is not "
-                                      "ported yet: ROADMAP queue A item 4")
 
         self.mixer = None
         mixer_name = getattr(args, "mixer", None)
@@ -76,10 +77,9 @@ class QLearner:
         self.params = list(mac.parameters())
         if self.mixer is not None:
             self.params += list(self.mixer.parameters())
-        if getattr(args, "weight_decay", 0):
-            raise NotImplementedError("weight_decay is not ported yet (ROADMAP queue A item 4)")
         self.optimiser = torch.optim.RMSprop(self.params, lr=args.lr, alpha=args.optim_alpha,
                                              eps=args.optim_eps,
+                                             weight_decay=float(getattr(args, "weight_decay", 0)),
                                              capturable=self.device.type == "cuda")
         self.target_mac = copy.deepcopy(mac)
         self.target_mixer = copy.deepcopy(self.mixer)
@@ -88,6 +88,13 @@ class QLearner:
             self.target_params += list(self.target_mixer.parameters())
         self.last_target_update_episode = 0
         self.log_stats_t = -getattr(args, "learner_log_interval", 2000) - 1
+
+    def param_names(self) -> List[str]:
+        """A name for each of ``params`` (and of ``target_params``), in order."""
+        names = [f"agent.{n}" for n, _ in self.mac.agent.named_parameters()]
+        if self.mixer is not None:
+            names += [f"mixer.{n}" for n, _ in self.mixer.named_parameters()]
+        return names
 
     # ------------------------------------------------------------------
     def _loss(self, batch: Dict[str, torch.Tensor], imagine_draws=None):
@@ -134,7 +141,12 @@ class QLearner:
             chosen_tot, target_tot = chosen, target_max_qvals
             caq_tot = caq_imagine if self.is_imagine else None
 
-        targets = (rewards + args.gamma * (1.0 - terminated) * target_tot[:, 1:]).detach()
+        td_lambda = getattr(args, "td_lambda", None)
+        if td_lambda is not None:
+            targets = build_td_lambda_targets(rewards, terminated, mask, target_tot, args.gamma,
+                                              td_lambda).detach()
+        else:
+            targets = (rewards + args.gamma * (1.0 - terminated) * target_tot[:, 1:]).detach()
         td_error = chosen_tot - targets
         masked_td = td_error * mask
         mask_elems = mask.sum()

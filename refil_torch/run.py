@@ -14,10 +14,24 @@ Two training loops, as in the JAX package:
   ``batch_size`` episodes, ``training_iters`` learner updates on
   ``sample_many`` samples, with the host between the stages.
 
-Then, in both, the periodic greedy test runs and logging. Not ported yet,
-and refused with ``NotImplementedError`` when asked for: checkpoints,
-resume, preemption handling, eval-only runs, the mesh, multi-process runs
-and TensorBoard.
+Then, in both, the periodic greedy test runs (on a generator of their own,
+so they leave the training stream alone), logging, checkpoints on the
+``save_model_interval`` cadence and the preemption check: a SIGTERM lets the
+in-flight block or dispatch finish, writes a checkpoint and returns.
+
+Checkpoints (``models/<token>/<t_env>/state.pt``, ``torch.save`` of CPU
+tensors, written to a tmp file and renamed): the learner's parameters,
+targets and RMSprop state; a fused run adds the pipeline's counters and its
+rollout, sample and learner generators, and with ``checkpoint_buffer`` the
+replay ring, so a resumed fused run repeats the unbroken run exactly. A
+restore copies into the live tensors in place, since a captured CUDA graph
+replays only on the tensors it was captured over. ``checkpoint_path`` loads
+the newest step (or the one nearest ``load_step``) and, under ``evaluate``,
+runs only ``evaluate_sequential``.
+
+Not ported yet, and refused with ``NotImplementedError`` when asked for:
+replays and eval videos, the mesh, multi-process runs, the scripted ally
+policy and the flat env.
 
 Device: ``use_cuda`` (default True) runs on the CUDA card and raises where
 there is none; ``use_cuda=False`` runs on the CPU.
@@ -25,10 +39,13 @@ there is none; ``use_cuda=False`` runs on the CPU.
 from __future__ import annotations
 
 import datetime
+import json
+import os
 import pprint
+import signal
 import time
-from os.path import join
-from typing import Any, Dict
+from os.path import abspath, dirname, join
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,16 +64,45 @@ from .utils.timehelper import time_left, time_str
 
 # config keys whose feature is not ported yet -> the ROADMAP item that holds it
 _UNPORTED = {
-    "checkpoint_path": "checkpoint load/resume (ROADMAP queue A item 9)",
-    "save_model": "checkpoint save (ROADMAP queue A item 9)",
-    "handle_preemption": "preemption handling (ROADMAP queue A item 9)",
-    "evaluate": "eval-only runs (ROADMAP queue A item 9)",
-    "save_replay": "replays (ROADMAP queue A item 9)",
-    "use_tensorboard": "TensorBoard logging (ROADMAP queue A item 9)",
+    "save_replay": "replays (ROADMAP queue A item 7: the env has no render_state)",
+    "video_path": "eval videos (ROADMAP queue A item 7: the env has no render_state)",
     "mesh_shape": "the device mesh (ROADMAP queue A item 11)",
     "distributed": "multi-process runs (ROADMAP queue A item 11)",
     "heuristic_ai": "the scripted ally policy (heuristic_actions, ROADMAP queue A item 7)",
 }
+
+STATE_FILE = "state.pt"
+
+
+class PreemptionGuard:
+    """SIGTERM (a cloud eviction notice) sets ``requested``; the training
+    loop finishes the in-flight block or dispatch, writes a checkpoint and
+    returns, so the run restarts from there with ``checkpoint_path=``
+    (``refil_tpu/run.py:PreemptionGuard``). ``restore`` puts back the
+    handler that ``install`` replaced. The handler only sets the flag: the
+    loop logs the preemption, since a handler that writes to a stream can
+    land inside another write to it."""
+
+    def __init__(self):
+        self.requested = False
+        self._previous = None
+        self._installed = False
+
+    def install(self) -> "PreemptionGuard":
+        def _handler(signum, frame):
+            self.requested = True
+
+        try:
+            self._previous = signal.signal(signal.SIGTERM, _handler)
+            self._installed = True
+        except ValueError:
+            pass  # not the main thread: the guard stays inert
+        return self
+
+    def restore(self) -> None:
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._previous)
+            self._installed = False
 
 
 def resolve_device(args) -> torch.device:
@@ -90,16 +136,16 @@ def refuse_unported(args) -> None:
 # envs the JAX package has and the port does not yet -> the ROADMAP item
 _UNPORTED_ENVS = {
     "flat_battle": "the flat path, ROADMAP queue A item 10",
-    "sc2custom": "the reference's name for entity_battle, ROADMAP queue A item 7; use "
-                 "env=entity_battle",
+    "sc2": "the reference's name for flat_battle, ROADMAP queue A item 10",
 }
 
 
 def build_env(args, device: torch.device):
-    """The env of ``args.env``; the combat env takes its scenario set from
-    the registry by ``args.scenario``, as ``refil_tpu/run.py:build_env`` does."""
+    """The env of ``args.env``; the combat env, under either of its names,
+    takes its scenario set from the registry by ``args.scenario``, as
+    ``refil_tpu/run.py:build_env`` does."""
     env_args = dict(args.env_args)
-    if args.env == "entity_battle":
+    if args.env in ("entity_battle", "sc2custom"):
         env_args["scenario_dict"] = SCENARIO_REGISTRY[args.scenario]()
     return ENV_REGISTRY[args.env](**env_args, device=device)
 
@@ -115,6 +161,8 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
                                pprint.pformat(config, indent=4, width=1))
     args.unique_token = "{}__{}".format(
         args.name, datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S-%f"))
+    if args.use_tensorboard:
+        logger.setup_tb(join(args.local_results_path, args.tb_dirname, args.unique_token))
     logger.setup_jsonl(join(args.local_results_path, "metrics", args.unique_token + ".jsonl"))
     try:
         summary = run_sequential(args, logger, device)
@@ -125,14 +173,15 @@ def run(config: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _generators(seed: int, device: torch.device) -> Dict[str, torch.Generator]:
-    """Independent generators for init, rollout, learner and the fused
-    pipeline's sampling, from ``seed``."""
-    init_s, roll_s, learn_s, sample_s = np.random.SeedSequence(seed).generate_state(4)
+    """Independent generators for init, rollout, learner, the fused
+    pipeline's sampling and the test runs, from ``seed``."""
+    init_s, roll_s, learn_s, sample_s, test_s = np.random.SeedSequence(seed).generate_state(5)
     return {
         "init": torch.Generator().manual_seed(int(init_s)),
         "rollout": torch.Generator(device=device).manual_seed(int(roll_s)),
         "learner": torch.Generator(device=device).manual_seed(int(learn_s)),
         "sample": torch.Generator(device=device).manual_seed(int(sample_s)),
+        "test": torch.Generator(device=device).manual_seed(int(test_s)),
     }
 
 
@@ -153,23 +202,223 @@ def build_training(args, logger, device: torch.device):
     return runner, learner, gens
 
 
+# ------------------------------------------------------------------ checkpoints
+# the PipelineState counters a fused checkpoint holds
+PIPELINE_COUNTERS = ("buffer_index", "episodes_in_buffer", "t_env", "episode",
+                     "last_target_episode")
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
+    """``dst.copy_(src)`` in place, cast to ``dst``'s dtype on the host (one
+    host-to-device copy); shapes must agree."""
+    if tuple(dst.shape) != tuple(src.shape):
+        raise ValueError(f"checkpoint tensor {name}: shape {tuple(src.shape)} != "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src.to(dst.dtype))
+
+
+def _save_checkpoint(path: str, learner, pstate=None, include_buffer: bool = False
+                     ) -> Dict[str, Any]:
+    """Writes ``path/state.pt``: the learner's parameters, targets and
+    RMSprop state by parameter name; with ``pstate`` (a ``PipelineState``)
+    also its counters and generator states, and, behind ``include_buffer``
+    (about 2.5 GB for the combat ring of 5000 episodes of 151 steps), the
+    ring, each plane one device-to-host copy. The write goes to a tmp file
+    that is then renamed, so a crash mid-save leaves no truncated
+    checkpoint. Returns the file's bytes and the seconds the save took."""
+    t0 = time.perf_counter()
+    names = learner.param_names()
+    opt = learner.optimiser.state
+    blob: Dict[str, Any] = {
+        "params": {n: p.detach().cpu() for n, p in zip(names, learner.params)},
+        "target": {n: t.detach().cpu() for n, t in zip(names, learner.target_params)},
+        "opt": {n: {k: v.detach().cpu() for k, v in opt[p].items()}
+                for n, p in zip(names, learner.params) if p in opt},
+    }
+    if pstate is not None:
+        pipe: Dict[str, Any] = {k: int(getattr(pstate, k)) for k in PIPELINE_COUNTERS}
+        pipe["generators"] = {k: g.get_state() for k, g in pstate.generators.items()}
+        if include_buffer:
+            pipe["ring"] = {k: v.cpu() for k, v in pstate.ring.items()}
+        blob["pipeline"] = pipe
+    os.makedirs(path, exist_ok=True)
+    tmp = join(path, STATE_FILE + ".tmp")
+    torch.save(blob, tmp)
+    os.replace(tmp, join(path, STATE_FILE))
+    return {"path": path, "bytes": os.path.getsize(join(path, STATE_FILE)),
+            "seconds": time.perf_counter() - t0}
+
+
+def _load_checkpoint(path: str, learner) -> Optional[Dict[str, Any]]:
+    """Copies the parameters, targets and RMSprop state of ``path/state.pt``
+    into the learner's live tensors, in place; returns the pipeline payload
+    (None where the checkpoint has none) for ``restore_pipeline_state``."""
+    blob = torch.load(join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    names = learner.param_names()
+    for group in ("params", "target"):
+        if set(blob[group]) != set(names):
+            raise KeyError(f"checkpoint {group} {sorted(set(blob[group]) ^ set(names))} do not "
+                           "match the learner's parameters")
+    opt = learner.optimiser.state
+    capturable = learner.optimiser.param_groups[0]["capturable"]
+    with torch.no_grad():
+        for n, p, t in zip(names, learner.params, learner.target_params):
+            _copy_into(p, blob["params"][n], n)
+            _copy_into(t, blob["target"][n], "target " + n)
+            saved = blob["opt"].get(n)
+            if p in opt and saved is None:  # saved before the first update
+                for v in opt[p].values():
+                    v.zero_()
+            elif p in opt:
+                for k, v in opt[p].items():
+                    _copy_into(v, saved[k], f"optimiser {n}.{k}")
+            elif saved is not None:  # no update yet here: the state is new
+                opt[p] = {k: v.to(p.device if k != "step" or capturable else "cpu").clone()
+                          for k, v in saved.items()}
+    return blob.get("pipeline")
+
+
+def restore_pipeline_state(ps, payload: Dict[str, Any]) -> None:
+    """Copies a checkpoint's pipeline payload into ``ps`` in place (a
+    captured block replays on these very tensors). The counters and the
+    generators always restore; the ring, cast to the run's ``buffer_dtype``,
+    with its fill counters only where it was saved (``checkpoint_buffer``):
+    otherwise the fresh ring keeps its zero fill counters, so sampling never
+    sees unwritten slots."""
+    for k in ("t_env", "episode", "last_target_episode"):
+        getattr(ps, k).fill_(int(payload[k]))
+    for k, g in ps.generators.items():
+        g.set_state(payload["generators"][k])
+    ring = payload.get("ring")
+    if ring is not None:
+        if set(ring) != set(ps.ring):
+            raise KeyError(f"checkpoint ring planes {sorted(ring)} != {sorted(ps.ring)}")
+        with torch.no_grad():
+            for k, buf in ps.ring.items():
+                _copy_into(buf, ring[k], "ring " + k)
+        ps.buffer_index.fill_(int(payload["buffer_index"]))
+        ps.episodes_in_buffer.fill_(int(payload["episodes_in_buffer"]))
+
+
+def resume_warmup_blocks(args, ps) -> int:
+    """Rollout-only blocks still needed after restoring a ring: a resume from
+    mid-warm-up finishes filling the ring before it trains."""
+    missing = int(args.batch_size) - int(ps.episodes_in_buffer)
+    return max(0, -(-missing // int(args.batch_size_run)))
+
+
+def find_checkpoint(checkpoint_path: str, load_step: int) -> Optional[Tuple[int, str]]:
+    """(step, directory) of the newest checkpoint under ``checkpoint_path``,
+    or of the one nearest ``load_step`` when it is not 0; only step
+    directories that hold a non-empty state file count. None where
+    ``checkpoint_path`` is not a directory."""
+    if not os.path.isdir(checkpoint_path):
+        return None
+
+    def valid(name):
+        f = join(checkpoint_path, name, STATE_FILE)
+        return name.isdigit() and os.path.isfile(f) and os.path.getsize(f) > 0
+
+    steps = [int(n) for n in os.listdir(checkpoint_path) if valid(n)]
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint ({STATE_FILE}) under {checkpoint_path}")
+    step = max(steps) if load_step == 0 else min(steps, key=lambda x: abs(x - load_step))
+    return step, join(checkpoint_path, str(step))
+
+
+def _model_path(args, t_env: int) -> str:
+    return join(args.local_results_path, "models", args.unique_token, str(t_env))
+
+
+def _save_due(args, t_env: int, model_save_time: int) -> bool:
+    return bool(args.save_model) and (t_env - model_save_time >= args.save_model_interval
+                                      or model_save_time == 0 or t_env > args.t_max)
+
+
+# ------------------------------------------------------------------ eval
+def evaluate_sequential(args, runner, logger: Logger, generator: torch.Generator
+                        ) -> Dict[str, Any]:
+    """Eval-only run (``refil_tpu/run.py:evaluate_sequential`` without the
+    video): one greedy rollout of all of ``test_nepisode`` for each scenario
+    under ``eval_all_scen`` (every env on that scenario), else one over
+    randomly drawn scenarios; the stats each logged go to ``eval_path`` as
+    JSON, keyed by scenario name under ``eval_all_scen``. Returns them and
+    each rollout's seconds."""
+    res: Dict[str, Any] = {}
+    n_scen = len(runner.env.scenario_names) if args.eval_all_scen else 1
+    n_test_eps = max(1, args.test_nepisode // runner.batch_size) * runner.batch_size
+    seconds = []
+    for i in range(n_scen):
+        # only the stats this scenario's rollout logged
+        before = {k: len(v) for k, v in logger.stats.items()}
+        t0 = time.perf_counter()
+        runner.run(test_mode=True, test_scen=True, index=i if args.eval_all_scen else None,
+                   batch_size=n_test_eps, generator=generator)
+        seconds.append(time.perf_counter() - t0)
+        curr = {k: v[-1][1] for k, v in logger.stats.items() if len(v) > before.get(k, 0)}
+        if args.eval_all_scen:
+            res[runner.env.scenario_names[i]] = curr
+        else:
+            res.update(curr)
+    if args.eval_path:
+        path = args.eval_path if args.eval_path.endswith(".json") else args.eval_path + ".json"
+        os.makedirs(dirname(abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(res, f)
+    logger.print_stats_summary()
+    return {"eval": res, "eval_seconds": seconds, "eval_episodes": n_test_eps}
+
+
+# ------------------------------------------------------------------ training
 def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]:
-    """Trains with the fused loop or the classic one (see the module's
-    docstring). Returns a summary: the loop, counts of blocks, updates and
-    diagnostics, the last learner metrics, the env-steps/s of the training
-    blocks (rollout + insert + updates, timed to a device sync; test runs,
-    logging and the fused loop's graph captures excluded), the last value
-    of every logged stat, and for the fused loop its graphs and dispatches
-    (each also with the seconds and env steps of its graph replays alone)."""
+    """Loads ``checkpoint_path`` where given (and under ``evaluate`` returns
+    ``evaluate_sequential``'s results), then trains with the fused loop or
+    the classic one (see the module's docstring). Returns a summary: the
+    loop, counts of blocks, updates and diagnostics, the last learner
+    metrics, the env-steps/s of the training blocks (rollout + insert +
+    updates, timed to a device sync; test runs, logging, checkpoints and the
+    fused loop's graph captures excluded), the last value of every logged
+    stat, the checkpoints written and loaded, whether a SIGTERM stopped the
+    run, and for the fused loop its graphs and dispatches (each also with
+    the seconds and env steps of its graph replays alone)."""
     runner, learner, gens = build_training(args, logger, device)
+    log = logger.console_logger
+    pipe_payload, restored = None, None
+    if args.checkpoint_path:
+        found = find_checkpoint(args.checkpoint_path, int(args.load_step))
+        if found is None:
+            log.info("Checkpoint directory %s doesn't exist", args.checkpoint_path)
+            return {"loop": None, "t_env": 0, "device": str(device)}
+        step, model_path = found
+        log.info("Loading model from %s", model_path)
+        t0 = time.perf_counter()
+        pipe_payload = _load_checkpoint(model_path, learner)
+        _sync(device)
+        restored = {"path": model_path, "t_env": step,
+                    "bytes": os.path.getsize(join(model_path, STATE_FILE)),
+                    "seconds": time.perf_counter() - t0}
+        runner.t_env = step
+        if args.evaluate:
+            out = evaluate_sequential(args, runner, logger, gens["test"])
+            return {**out, "loop": "evaluate", "restored": restored, "t_env": runner.t_env,
+                    "episode_limit": runner.episode_limit, "device": str(device)}
     initial_params = [p.detach().clone() for p in learner.params]
     use_fused = bool(getattr(args, "use_fused_pipeline", True)) and not bool(
         getattr(args, "buffer_cpu_only", False))
-    logger.console_logger.info("Beginning training for %s timesteps on %s (%s loop)",
-                               args.t_max, device, "fused" if use_fused else "classic")
-    loop = _run_fused_loop if use_fused else _run_classic_loop
-    summary = loop(args, runner, learner, logger, device, gens)
-    logger.console_logger.info("Finished Training")
+    log.info("Beginning training for %s timesteps on %s (%s loop)",
+             args.t_max, device, "fused" if use_fused else "classic")
+    guard = PreemptionGuard()
+    if bool(getattr(args, "handle_preemption", True)):
+        guard.install()
+    try:
+        if use_fused:
+            summary = _run_fused_loop(args, runner, learner, logger, device, gens, guard,
+                                      pipe_payload)
+        else:
+            summary = _run_classic_loop(args, runner, learner, logger, device, gens, guard)
+    finally:
+        guard.restore()
+    log.info("Finished Training")
     steps, seconds = summary.pop("train_steps"), summary["train_seconds"]
     return {
         **summary,
@@ -180,6 +429,8 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
         "last_logged": {k: v[-1][1] for k, v in logger.stats.items()},
         "params_max_abs_change": max(float((p.detach() - p0).abs().max())
                                      for p, p0 in zip(learner.params, initial_params)),
+        "restored": restored,
+        "preempted": guard.requested,
         "device": str(device),
     }
 
@@ -193,22 +444,27 @@ def _log_due(args, runner, logger, state) -> None:
         state["last_log_T"] = runner.t_env
 
 
-def _run_classic_loop(args, runner, learner, logger, device, gens) -> Dict[str, Any]:
-    """The classic loop (``refil_tpu/run.py:411-503``)."""
+def _run_classic_loop(args, runner, learner, logger, device, gens, guard) -> Dict[str, Any]:
+    """The classic loop (``refil_tpu/run.py:411-503``). Its checkpoints hold
+    the learner only, as the JAX package's do: a resume refills the ring."""
     log = logger.console_logger
     buffer_device = torch.device("cpu") if getattr(args, "buffer_cpu_only", False) else device
     buffer = None
+    timer = PhaseTimer()
     cadence = {"episode": 0, "last_log_T": 0}
     last_test_T = -args.test_interval - 1
+    model_save_time = 0
     start_time = last_time = time.time()
     counts = {"blocks": 0, "test_blocks": 0, "updates": 0, "iterations": 0, "diag_calls": 0}
     train_seconds, train_steps = 0.0, 0
     last_metrics: Dict[str, float] = {}
+    saves = []
 
     while runner.t_env <= args.t_max:
         t_block = time.perf_counter()
         t_before = runner.t_env
-        episode_batch = runner.run(test_mode=False)
+        with timer.phase("rollout"):
+            episode_batch = runner.run(test_mode=False)
         if buffer is None:
             buffer = ReplayBuffer(episode_batch, args.buffer_size, seed=args.seed,
                                   device=buffer_device,
@@ -218,8 +474,9 @@ def _run_classic_loop(args, runner, learner, logger, device, gens) -> Dict[str, 
 
         metrics = None
         if buffer.can_sample(args.batch_size):
-            samples = buffer.sample_many(args.training_iters, args.batch_size, device=device)
-            metrics = learner.train_iters(samples, runner.t_env, cadence["episode"])
+            with timer.phase("train"):
+                samples = buffer.sample_many(args.training_iters, args.batch_size, device=device)
+                metrics = learner.train_iters(samples, runner.t_env, cadence["episode"])
             counts["updates"] += 1
             counts["iterations"] += args.training_iters
         _sync(device)
@@ -231,6 +488,8 @@ def _run_classic_loop(args, runner, learner, logger, device, gens) -> Dict[str, 
             for k, v in last_metrics.items():
                 if k != "loss_td":
                     logger.log_stat(k, v, runner.t_env)
+            for k, v in timer.stats().items():
+                logger.log_stat(k, v, runner.t_env)
             if getattr(args, "test_gt_factors", False):
                 last_sample = {k: v[-1] for k, v in samples.items()}
                 diag = learner.gt_diagnostics(last_sample)
@@ -251,49 +510,83 @@ def _run_classic_loop(args, runner, learner, logger, device, gens) -> Dict[str, 
             last_time = time.time()
             last_test_T = runner.t_env
             for _ in range(n_test_runs):
-                runner.run(test_mode=True)
+                runner.run(test_mode=True, generator=gens["test"])
                 counts["test_blocks"] += 1
+
+        if _save_due(args, runner.t_env, model_save_time):
+            model_save_time = runner.t_env
+            saves.append(_save_checkpoint(_model_path(args, runner.t_env), learner))
+            log.info("Saved models to %s (%d bytes, %.3f s)", saves[-1]["path"],
+                     saves[-1]["bytes"], saves[-1]["seconds"])
 
         cadence["episode"] += args.batch_size_run
         _log_due(args, runner, logger, cadence)
 
+        if guard.requested:
+            saves.append(_save_checkpoint(_model_path(args, runner.t_env), learner))
+            log.info("Preempted at t_env=%d: checkpoint written to %s", runner.t_env,
+                     saves[-1]["path"])
+            break
+
     return {**counts, "episodes": cadence["episode"], "train_seconds": train_seconds,
-            "train_steps": train_steps, "last_metrics": last_metrics}
+            "train_steps": train_steps, "last_metrics": last_metrics, "saves": saves}
 
 
-def _run_fused_loop(args, runner, learner, logger, device, gens) -> Dict[str, Any]:
+def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
+                    pipe_payload=None) -> Dict[str, Any]:
     """The fused loop (``refil_tpu/run.py:_run_fused_loop``): one dispatch
-    of ``run_blocks`` between host-cadence boundaries (test, t_max), each
-    block accounted on the host from the stats fetched once per dispatch."""
+    of ``run_blocks`` between host-cadence boundaries (test, model save,
+    t_max), each block accounted on the host from the stats fetched once per
+    dispatch. ``pipe_payload`` (a checkpoint's) is restored into the fresh
+    pipeline state before the first block."""
     log = logger.console_logger
     pipeline = FusedPipeline(runner, learner, args.buffer_size, args)
     ps = pipeline.init_state(gens["sample"], t_env=runner.t_env)
     warm = pipeline.warmup_blocks()
+    if pipe_payload is not None:
+        restore_pipeline_state(ps, pipe_payload)
+        if "ring" in pipe_payload:
+            warm = resume_warmup_blocks(args, ps)
+        runner.t_env = int(ps.t_env)
+        log.info("Restored pipeline state: t_env=%d episode=%d ring=%s", runner.t_env,
+                 int(ps.episode), "restored" if "ring" in pipe_payload else "fresh")
     timer = PhaseTimer()
     cadence = {"episode": int(ps.episode), "last_log_T": 0}
     blocks_done = 0
     last_test_T = -args.test_interval - 1
+    model_save_time = 0
     start_time = last_time = time.time()
     counts = {"blocks": 0, "test_blocks": 0, "updates": 0, "iterations": 0, "diag_calls": 0}
     train_seconds, train_steps = 0.0, 0
     last_metrics: Dict[str, float] = {}
-    dispatches = []
+    dispatches, saves = [], []
 
-    # Between host-cadence boundaries (test, t_max) the loop runs as many
-    # blocks as fit in one dispatch. A block takes at most batch_size_run *
-    # episode_limit env steps, so ``remaining // bound`` blocks never cross a
-    # boundary before the single-block loop would: the logged series are the
-    # same as with one block a dispatch. Sizes are powers of two, warm-up and
-    # train blocks never share a dispatch.
+    # Between host-cadence boundaries (test, model save, t_max) the loop
+    # runs as many blocks as fit in one dispatch. A block takes at most
+    # batch_size_run * episode_limit env steps, so ``remaining // bound``
+    # blocks never cross a boundary before the single-block loop would: the
+    # logged series and the saves are the same as with one block a
+    # dispatch. Sizes are powers of two, warm-up and train blocks never
+    # share a dispatch.
     max_steps_per_block = args.batch_size_run * runner.episode_limit
     max_dispatch = int(getattr(args, "max_blocks_per_dispatch", 32))
 
     def n_blocks_to_boundary() -> int:
-        remaining = max(0, min(last_test_T + args.test_interval, args.t_max + 1) - runner.t_env)
+        nxt = [last_test_T + args.test_interval, args.t_max + 1]
+        if args.save_model:
+            nxt.append(model_save_time + args.save_model_interval if model_save_time
+                       else args.save_model_interval)
+        remaining = max(0, min(nxt) - runner.t_env)
         n = min(max(1, remaining // max_steps_per_block), max_dispatch)
         if blocks_done < warm:
             n = min(n, warm - blocks_done)
         return 1 << (int(n).bit_length() - 1)
+
+    def save(include_buffer: bool) -> None:
+        saves.append(_save_checkpoint(_model_path(args, runner.t_env), learner, pstate=ps,
+                                      include_buffer=include_buffer))
+        log.info("Saved models to %s (%d bytes, %.3f s)", saves[-1]["path"], saves[-1]["bytes"],
+                 saves[-1]["seconds"])
 
     while runner.t_env <= args.t_max:
         n_blocks = n_blocks_to_boundary()
@@ -350,13 +643,23 @@ def _run_fused_loop(args, runner, learner, logger, device, gens) -> Dict[str, An
                      time_str(time.time() - start_time))
             last_time = time.time()
             last_test_T = runner.t_env
-            runner.run(test_mode=True, batch_size=n_test_eps)
+            runner.run(test_mode=True, batch_size=n_test_eps, generator=gens["test"])
             counts["test_blocks"] += 1
 
+        if _save_due(args, runner.t_env, model_save_time):
+            model_save_time = runner.t_env
+            save(bool(getattr(args, "checkpoint_buffer", False)))
+
         _log_due(args, runner, logger, cadence)
+
+        if guard.requested:
+            save(bool(getattr(args, "preempt_save_buffer", True)))
+            log.info("Preempted at t_env=%d: exact-resume checkpoint written to %s",
+                     runner.t_env, saves[-1]["path"])
+            break
 
     if pipeline.graphs:
         log.info("CUDA graphs: %s", {k: g.summary() for k, g in pipeline.graphs.items()})
     return {**counts, "episodes": cadence["episode"], "train_seconds": train_seconds,
             "train_steps": train_steps, "last_metrics": last_metrics, "dispatches": dispatches,
-            "graphs": {k: g.summary() for k, g in pipeline.graphs.items()}}
+            "graphs": {k: g.summary() for k, g in pipeline.graphs.items()}, "saves": saves}

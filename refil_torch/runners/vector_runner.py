@@ -77,17 +77,20 @@ class VectorRunner:
 
     @torch.no_grad()
     def rollout(self, epsilon: Union[float, torch.Tensor], batch_size: int, test: bool = False,
-                env_draws: Optional[dict] = None):
+                env_draws: Optional[dict] = None, index: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
         """One block of ``batch_size`` episodes; ``epsilon`` a float or a 0-d
-        tensor on the device. ``env_draws`` = {"reset": draws, "step": [draws
-        per step]} feeds the env explicit randomness (tests); otherwise the
-        runner's generator draws it. Returns (batch dict (B, T+1, ...), stats
-        dict of device tensors). Nothing here waits for the device, so the
-        fused pipeline's CUDA graph can capture it."""
-        env, mac, gen = self.env, self.mac, self.generator
+        tensor on the device; ``index`` (>= 0) fixes every env's scenario.
+        ``env_draws`` = {"reset": draws, "step": [draws per step]} feeds the
+        env explicit randomness (tests); otherwise ``generator`` (default:
+        the runner's) draws it. Returns (batch dict (B, T+1, ...), stats dict
+        of device tensors). Nothing here waits for the device, so the fused
+        pipeline's CUDA graph can capture it."""
+        env, mac = self.env, self.mac
+        gen = self.generator if generator is None else generator
         B, T = batch_size, self.episode_limit
         dev = mac.device
-        state, obs = env.reset(B, generator=gen, test=test,
+        state, obs = env.reset(B, generator=gen, test=test, index=index,
                                draws=None if env_draws is None else env_draws["reset"])
         obs0 = obs
         hidden = mac.init_hidden(B)
@@ -160,16 +163,22 @@ class VectorRunner:
                     filled=((T1, 1), torch.bool))
         return spec
 
-    def run(self, test_mode: bool = False, batch_size: Optional[int] = None
-            ) -> Dict[str, torch.Tensor]:
+    def run(self, test_mode: bool = False, batch_size: Optional[int] = None,
+            test_scen: Optional[bool] = None, index: Optional[int] = None,
+            generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One episode block with the scheduled epsilon (0 in test mode);
         accounts its stats and returns the episode batch. ``batch_size``
         overrides ``batch_size_run`` for this call: the fused loop runs all
-        of ``test_nepisode`` as one wider rollout."""
+        of ``test_nepisode`` as one wider rollout. ``test_scen`` (default:
+        ``test_mode``) is the env's test flag, ``index`` a fixed scenario
+        (eval-only runs); ``generator`` draws in place of the runner's (the
+        loops' test runs, so they leave the training stream alone)."""
+        if test_scen is None:
+            test_scen = test_mode
         self.epsilon = self.schedule.eval_host(self.t_env)
         eps = 0.0 if test_mode else self.epsilon
         batch, stats = self.rollout(eps, self.batch_size if batch_size is None else batch_size,
-                                    test=test_mode)
+                                    test=bool(test_scen), index=index, generator=generator)
         stats = _to_host(stats)
         if not test_mode:
             self.t_env += int(stats["ep_lengths"].sum())

@@ -1,5 +1,5 @@
-"""Metrics logging: in-memory stats, console tables and a JSONL file.
-Port of ``refil_tpu/utils/logging.py`` without TensorBoard."""
+"""Metrics logging: in-memory stats, console tables, a JSONL file and
+optional TensorBoard. Port of ``refil_tpu/utils/logging.py``."""
 from __future__ import annotations
 
 import json
@@ -7,6 +7,8 @@ import logging
 import os
 from collections import defaultdict
 from typing import Optional
+
+import numpy as np
 
 
 def get_logger() -> logging.Logger:
@@ -26,6 +28,19 @@ class Logger:
         self.console_logger = console_logger or get_logger()
         self.stats = defaultdict(list)  # name -> [(t, value)]
         self._jsonl = None
+        self._tb_writer = None
+
+    def setup_tb(self, directory_name: str) -> None:
+        """Writes every later stat to TensorBoard under ``directory_name``;
+        warns and skips where ``torch.utils.tensorboard`` cannot be imported
+        (it needs the ``tensorboard`` package)."""
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            self.console_logger.warning("tensorboard unavailable; skipping tb logging")
+            return
+        os.makedirs(directory_name, exist_ok=True)
+        self._tb_writer = SummaryWriter(log_dir=directory_name)
 
     def setup_jsonl(self, path: str) -> None:
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -35,10 +50,15 @@ class Logger:
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
+        if self._tb_writer is not None:
+            self._tb_writer.close()
+            self._tb_writer = None
 
     def log_stat(self, key: str, value, t: int) -> None:
         value = float(value)
         self.stats[key].append((t, value))
+        if self._tb_writer is not None:
+            self._tb_writer.add_scalar(key, value, t)
         if self._jsonl is not None:
             self._jsonl.write(json.dumps({"t": t, "key": key, "value": value}) + "\n")
             self._jsonl.flush()
@@ -57,3 +77,10 @@ class Logger:
             log_str += "{:<25}{:>8}".format(k + ":", item)
             log_str += "\n" if i % 4 == 0 else "\t"
         self.console_logger.info(log_str)
+
+    def print_stats_summary(self) -> None:
+        """Mean and std of every stat over the whole run."""
+        for k, v in sorted(self.stats.items()):
+            vals = [x[1] for x in v]
+            self.console_logger.info("%s: mean %.4f, std %.4f", k, float(np.mean(vals)),
+                                     float(np.std(vals)))

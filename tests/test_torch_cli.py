@@ -1,5 +1,7 @@
 """refil_torch's CLI end to end on the CPU, its device rule, the features it
-refuses, and the rule that the port imports nothing of JAX."""
+still refuses (replays and eval videos, the mesh, multi-process runs, the
+scripted allies, the flat path), and the rule that the port imports nothing
+of JAX."""
 import ast
 import glob
 import math
@@ -53,14 +55,14 @@ def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):
         tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=True"))
 
 
-@pytest.mark.parametrize("extra", ["save_model=True", "handle_preemption=True",
-                                   "checkpoint_path=somewhere", "evaluate=True",
-                                   "mesh_shape={'data':2}", "use_tensorboard=True",
-                                   "agent=rnn", "mixer=qmix", "env=flat_battle",
-                                   "env=sc2custom", "td_lambda=0.8", "heuristic_ai=True"])
+@pytest.mark.parametrize("extra", ["mesh_shape={'data':2}", "distributed=True", "agent=rnn",
+                                   "mixer=qmix", "env=flat_battle", "env=sc2",
+                                   "heuristic_ai=True", "save_replay=True",
+                                   ("evaluate=True", "video_path=eval.mp4")])
 def test_unported_features_raise(tmp_path, extra):
+    extra = (extra,) if isinstance(extra, str) else extra
     with pytest.raises(NotImplementedError):
-        tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=False", extra))
+        tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=False", *extra))
 
 
 def test_cli_parse_matches_reference():

@@ -1,10 +1,13 @@
-"""The combat slice's numerical core as a whole: refil_torch's QLearner for
-``refil`` on ``entity_battle`` against refil_tpu's, on one
-``(training_iters, batch, L, ...)`` sample of episodes that the JAX runner
-produced on 1-5m_symmetric, with the same parameters loaded into both and the
-JAX imagine draws handed to the port. The JAX learner's GRU runs on its XLA
-scan and on the Pallas kernel in interpret mode. Metrics after 4 RMSprop
-updates at rtol 1e-5, parameters at atol 1e-5, at narrow widths."""
+"""The combat slice's numerical core as a whole: refil_torch's QLearner on
+``entity_battle`` against refil_tpu's, on one ``(training_iters, batch, L,
+...)`` sample of episodes that the JAX runner produced on 1-5m_symmetric,
+with the same parameters loaded into both and the JAX imagine draws handed
+to the port, for each combat learner config: ``refil`` (its JAX GRU on the
+XLA scan and on the Pallas kernel in interpret mode), ``refil_vdn``,
+``vdn_atten`` and ``qmix_atten``. Metrics after 4 RMSprop updates at rtol
+1e-5, parameters at atol 1e-5, at narrow widths; and ``refil`` at
+``compute_dtype=bfloat16``, metrics and parameters within the bf16
+tolerance 2e-2 (relative to max(1, |x|))."""
 import jax
 import numpy as np
 import pytest
@@ -32,9 +35,9 @@ METRICS = ("loss", "loss_td", "im_loss", "grad_norm", "td_error_abs", "q_taken_m
            "target_mean")
 
 
-def _args(cfg_mod, extra=()):
+def _args(cfg_mod, alg="refil", extra=()):
     cfg = cfg_mod.args_sanity_check(
-        cfg_mod.load_config(alg="refil", env="entity_battle", overrides=NARROW + list(extra)))
+        cfg_mod.load_config(alg=alg, env="entity_battle", overrides=NARROW + list(extra)))
     args = cfg_mod.config_to_args(cfg)
     args.entity_scheme = True
     return args
@@ -51,8 +54,11 @@ def jax_gru(request):
     pg._INTERPRET = False
 
 
-def test_combat_learner_matches_jax(jax_gru):
-    jargs = _args(jconfig)
+def _combat_learner_vs_jax(alg, extra=(), tol=None):
+    """Runs both learners on the same sample; ``tol`` None: rtol 1e-5 on the
+    metrics and atol 1e-5 on the parameters, else |a - b| <= tol max(1, |b|)
+    on both."""
+    jargs = _args(jconfig, alg, extra)
     jenv = jax_build_env(jargs)
     info = jenv.env_info()
     jmac = JaxMAC(jargs, info)
@@ -70,30 +76,57 @@ def test_combat_learner_matches_jax(jax_gru):
     samples = ring.sample_many(jargs.training_iters, jargs.batch_size)
     assert samples["entities"].shape[:3] == (4, 8, 13)
 
-    targs = _args(tconfig, ["use_cuda=False"])
+    targs = _args(tconfig, alg, list(extra) + ["use_cuda=False"])
     env = build_env(targs, torch.device("cpu"))
     assert env.env_info() == info
     mac = EntityMAC(targs, info, "cpu")
     learner = QLearner(mac, targs, info, "cpu")
     tparams.load_flax_params(mac.agent, flax_tree_to_numpy(state.params["agent"]))
-    tparams.load_flax_params(learner.mixer, flax_tree_to_numpy(state.params["mixer"]))
+    modules = {"agent": mac.agent}
+    if "mixer" in state.params and state.params["mixer"]:
+        tparams.load_flax_params(learner.mixer, flax_tree_to_numpy(state.params["mixer"]))
+        modules["mixer"] = learner.mixer
     learner.update_targets()
 
-    draws = []
-    for k in jax.random.split(k_train, jargs.training_iters):
-        key_p, key_b = jax.random.split(k)  # the draws masks.py takes from the key
-        gp = jax.random.uniform(key_p, (jargs.batch_size, 1, 1))
-        ga = jax.random.bernoulli(key_b, gp, (jargs.batch_size, 1, info["n_entities"]))
-        draws.append((torch.as_tensor(np.array(gp)), torch.as_tensor(np.array(ga))))
+    draws = None
+    if learner.is_imagine:
+        draws = []
+        for k in jax.random.split(k_train, jargs.training_iters):
+            key_p, key_b = jax.random.split(k)  # the draws masks.py takes from the key
+            gp = jax.random.uniform(key_p, (jargs.batch_size, 1, 1))
+            ga = jax.random.bernoulli(key_b, gp, (jargs.batch_size, 1, info["n_entities"]))
+            draws.append((torch.as_tensor(np.array(gp)), torch.as_tensor(np.array(ga))))
     state2, jmetrics = jlearner.train_iters(state, samples, k_train, 0, 0)
     tmetrics = learner.train_iters(batch_to_torch(samples), 0, 0, imagine_draws=draws)
 
-    assert set(METRICS) == set(jmetrics) == set(tmetrics)
-    for k in METRICS:
-        np.testing.assert_allclose(float(tmetrics[k]), float(jmetrics[k]), rtol=1e-5,
-                                   atol=1e-7, err_msg=k)
-    assert_trees_close(tparams.to_flax_params(mac.agent),
-                       unwrap(flax_tree_to_numpy(state2.params["agent"])), atol=1e-5)
-    assert_trees_close(tparams.to_flax_params(learner.mixer),
-                       unwrap(flax_tree_to_numpy(state2.params["mixer"])), atol=1e-5)
+    names = set(METRICS) - (set() if learner.is_imagine else {"im_loss"})
+    assert names == set(jmetrics) == set(tmetrics)
+    for k in sorted(names):
+        got, want = float(tmetrics[k]), float(jmetrics[k])
+        if tol is None:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7, err_msg=k)
+        else:
+            assert abs(got - want) <= tol * max(1.0, abs(want)), (k, got, want)
+    for name, module in modules.items():
+        want = unwrap(flax_tree_to_numpy(state2.params[name]))
+        if tol is None:
+            assert_trees_close(tparams.to_flax_params(module), want, atol=1e-5)
+        else:
+            assert_trees_close(tparams.to_flax_params(module), want, atol=tol, rtol=tol)
     assert learner.gt_diagnostics(batch_to_torch({k: v[-1] for k, v in samples.items()})) is None
+    return learner
+
+
+def test_combat_learner_matches_jax(jax_gru):
+    _combat_learner_vs_jax("refil")
+
+
+@pytest.mark.parametrize("alg", ["refil_vdn", "vdn_atten", "qmix_atten"])
+def test_combat_learner_configs_match_jax(alg):
+    learner = _combat_learner_vs_jax(alg)
+    assert learner.is_imagine == (alg == "refil_vdn")
+
+
+def test_combat_learner_bf16_matches_jax():
+    learner = _combat_learner_vs_jax("refil", ["compute_dtype=bfloat16"], tol=2e-2)
+    assert learner.mac.agent.dtype == learner.mixer.dtype == torch.bfloat16

@@ -5,8 +5,8 @@
   ``tests/test_fused_loop.py``; the ``time_*`` phase timers are wall-clock
   and skipped). On the CPU the blocks run eagerly, so the values are equal.
 * ``use_fused_pipeline=False`` and ``buffer_cpu_only`` run the classic loop.
-* The features the fused loop does not port (the mesh, checkpoints,
-  preemption) still raise.
+* The features the port does not have yet (the mesh, multi-process runs,
+  replays) still raise.
 """
 import json
 import os
@@ -84,8 +84,8 @@ def test_loop_choice(tmp_path, extra, loop):
     assert ("dispatches" in summary) == (loop == "fused")
 
 
-@pytest.mark.parametrize("extra", ["mesh_shape={'data':2}", "save_model=True",
-                                   "handle_preemption=True"])
+@pytest.mark.parametrize("extra", ["mesh_shape={'data':2}", "distributed=True",
+                                   "save_replay=True"])
 def test_unported_features_still_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmain.main(ARGS + [f"local_results_path={tmp_path}", extra])

@@ -143,6 +143,8 @@ def test_optax_clip_rule_and_td_lambda_refused():
                                                     for p in learner.params]))
     np.testing.assert_allclose(float(clipped), 1e-3, rtol=1e-4)
 
+    # TD(lambda) is ported (tests/test_torch_td_lambda.py); the flat state's
+    # QMixer is not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QLearner(mac, _args(tconfig, "refil_group_matching", ["td_lambda=0.8"]),
+        QLearner(mac, _args(tconfig, "refil_group_matching", ["mixer=qmix"]),
                  env.env_info(), "cpu")
