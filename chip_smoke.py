@@ -18,11 +18,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      phase's rollout of the combat config's own test_nepisode; plus an
      Nq < Ne case with a fully blocked row, a post-masked row, no pre-mask,
      and batches that are not a multiple of the block's samples, one of them
-     at the combat widths), each also held to the plain version of its
+     at the combat widths; and REFIL's own Group Matching pre-masks, the
+     imagined groups' and the ground-truth groups', from
+     ``build_imagine_masks``), each also held to the plain version of its
      stages (``entity_attention_forward_staged``,
      ``entity_attention_backward_staged``) and called twice for identical
      bits; the GRU forward and backward at every shape of the combat slice,
-     a ragged one, and a sweep of R and T across the rows-per-block plans,
+     a ragged one, at every shape of the flat slice on 3m and on the
+     widest map, 27m_vs_30m (its learner's whole episodes, its rollout's
+     steps and its fused test rollout's, from ``config/algs/qmix.yaml`` and
+     ``config/envs/sc2.yaml``), and a sweep of R and T across the
+     rows-per-block plans,
      the backward also held to the plain version of its stages
      (``gru_backward_staged``) and called twice for identical bits; the
      attention's matrix product alone at the shapes both directions give it
@@ -33,18 +39,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      hoisted input matmul plus the kernel), beside the least time the card
      could take (``bound_ms``).
   4. fused slices, the default loop: ``refil_torch.main`` trains
-     refil_group_matching (>= 8 learner updates) and the flagship refil on
+     refil_group_matching (>= 8 learner updates), the flagship refil on
      entity_battle 3-8sz_symmetric at the config's full width (>= 2
-     dispatches of >= 2 train blocks), each block after the first of its
-     kind a CUDA graph replay; prints env-steps/s (and over the replayed
-     train blocks alone, the eager first one timed apart), the dispatches, the last
+     dispatches of >= 2 train blocks) and qmix on the flat env sc2 3m at
+     its full width (``flat``: RNNAgent on the GRU kernels, QMixer), each
+     block after the first of its kind a CUDA graph replay; prints
+     env-steps/s (and over the replayed train blocks alone, the eager first
+     one timed apart), the dispatches, the last
      metrics (combat: with battle_won_mean) and each graph's capture and
      instantiate seconds and pool size (``graphs`` lines); checks the
      kernels' launch counts (the counts, plus each graph's recorded
      launches times its replays less the capture's one count) against the
      counts the run's shapes imply, and that every later block of a kind
      was a replay of one recorded block's launches.
-  5. classic slices: the same two configurations with
+  5. classic slices: the same three configurations with
      ``use_fused_pipeline=False``, launch counts checked the same way.
   6. graph_vs_eager: one eager combat train block under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then from
@@ -76,8 +84,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      the profiler: its attention and GRU launches, counted by a kernel only
      each launch runs, are the ones its capture recorded, and no library
      attention or recurrence kernel (SDPA, flash, cuDNN) runs in it.
-  11. the ``kernels`` line (launches from the fused combat run) and the last
-     line ``{"ok": true, "device": ...}``.
+  11. the ``kernels`` line (launches from the fused combat run, with the
+     fused Group Matching and flat runs' beside them) and the last line
+     ``{"ok": true, "device": ...}``.
 
 Each phase that drives a path (4, 5, 6, both runs of 7, 8's resume, 9)
 sets the launch counts to 0 just before it and reads them just after (8's
@@ -138,11 +147,42 @@ GRU_PLAN_ROWS = (1, 37, 64, 256, 768, 1000)
 GRU_PLAN_STEPS = (1, 13, 151)
 
 
+# the flat slice (qmix on sc2): its map, and the widest map of MAP_REGISTRY,
+# whose GRU shapes are held to the plain version too
+FLAT_MAPS = ("3m", "27m_vs_30m")
+
+
+def flat_gru_shapes():
+    """(name, T, R) of every GRU call of the flat slice on each of FLAT_MAPS,
+    from its configs: the learner's whole episodes (live and target agent,
+    T = episode_limit + 1, R = batch_size x agents), a training rollout's
+    step (R = batch_size_run x agents) and the fused loop's test rollout's
+    (all of test_nepisode in one rollout)."""
+    from refil_torch.config import args_sanity_check, load_config
+    from refil_torch.envs.combat.flat_env import MAP_REGISTRY
+
+    rows = []
+    for name in FLAT_MAPS:
+        cfg = args_sanity_check(load_config(alg="qmix", env="sc2",
+                                            overrides=[f"env_args.map_name={name}"]))
+        ally, _, limit = MAP_REGISTRY[name]
+        na = sum(n for n, _ in ally)
+        bsr = cfg["batch_size_run"]
+        n_test = max(1, cfg["test_nepisode"] // bsr) * bsr
+        rows += [(f"{name}_learner", limit + 1, cfg["batch_size"] * na),
+                 (f"{name}_rollout", 1, bsr * na)]
+        if n_test != bsr:
+            rows.append((f"{name}_test_rollout", 1, n_test * na))
+    return rows
+
+
 def slice_argv(path, fused):
     """The command line of a slice phase (the fused loop is the default)."""
     if path == "group_matching":
         argv = ["--config=refil_group_matching", "--env-config=group_matching", "with",
                 f"t_max={GM_T_MAX}"]
+    elif path == "flat":
+        argv = ["--config=qmix", "--env-config=sc2", "with", f"t_max={FLAT_T_MAX}"]
     else:
         argv = ["--config=refil", "--env-config=entity_battle", "with",
                 "scenario=3-8sz_symmetric", "test_nepisode=8",
@@ -394,7 +434,7 @@ def phase_build(attn_rows):
 
 
 def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, seed=0,
-               timing=False, path=None):
+               timing=False, path=None, masks=None):
     from refil_torch.ops import entity_attn
     from refil_torch.ops.attention import entity_attention as plain
     from refil_torch.ops.attention import entity_attention_backward_staged as staged
@@ -402,6 +442,8 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
 
     ents, wi, wo, bo, pm, qm, gout = make_inputs(Bp, Ne, Nq, D, E, O, dtype, seed, pre,
                                                  mask_rows)
+    if masks is not None:  # given (pre-mask, post-mask) in place of the random ones
+        pm, qm = masks
     out_k = entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, H)
     out_k2 = entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, H)
     out_p = plain(ents, wi, wo, bo, pm, qm, H)
@@ -436,6 +478,7 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
     tol_f, tol_b = TOL["fwd"][dtype], TOL["bwd"][dtype]
     row = dict(kernel="entity_attn", path=path, case=tag, Bp=Bp, Ne=Ne, Nq=Nq, D=D, E=E, O=O,
                heads=H, mask_rows=mask_rows or Nq,
+               blocked_row_share=(None if pm is None else float(pm[:, :Nq].all(-1).float().mean())),
                dtype=str(dtype).replace("torch.", ""), pre_mask=pre,
                fwd_max_abs_err=fwd_err, fwd_vs_stages_max_abs_err=fwd_stage_err, fwd_tol=tol_f,
                fwd_two_calls_same_bits=fwd_same_bits, bwd_scaled_err=bwd_err, bwd_tol=tol_b,
@@ -680,7 +723,7 @@ def library_gru(xs, wi, bi, wh, bhn, h0):
     return gru
 
 
-def check_gru(tag, T, R, H, dtype, seed=0, timing=False):
+def check_gru(tag, T, R, H, dtype, seed=0, timing=False, path="combat"):
     from refil_torch.ops import gru_kernel
     from refil_torch.ops.gru import gru_backward_staged as staged
     from refil_torch.ops.gru import gru_sequence as plain
@@ -708,7 +751,7 @@ def check_gru(tag, T, R, H, dtype, seed=0, timing=False):
     bwd_err = {n: scaled_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
     stage_err = {n: scaled_err(a, b) for n, a, b in zip(names, grads_k, grads_s)}
     tol_f, tol_b = TOL["fwd"][dtype], TOL["bwd"][dtype]
-    row = dict(kernel="gru", path="combat", case=tag, T=T, R=R, H=H,
+    row = dict(kernel="gru", path=path, case=tag, T=T, R=R, H=H,
                dtype=str(dtype).replace("torch.", ""), fwd_max_abs_err=fwd_err, fwd_tol=tol_f,
                bwd_scaled_err=bwd_err, bwd_tol=tol_b,
                bwd_max_abs_err=max(max_err(a, b) for a, b in zip(grads_k, grads_p)),
@@ -749,6 +792,49 @@ def check_gru(tag, T, R, H, dtype, seed=0, timing=False):
     return row
 
 
+def imagined_masks_cases(dtype=torch.float32):
+    """The attention kernel on REFIL's own pre-masks at Group Matching's
+    learner shapes (refil_group_matching: batch 32 of 51 steps, Na = Ne = 8,
+    widths 64): ``build_imagine_masks`` on the masks of a batch of the GM env
+    (its obs and entity masks are all clear, so the masks are the random
+    groups'), drawn from a generator as the learner draws them; the agent x3
+    call (full view, within, interact: Bp 4,896) and both imagined hypernet
+    calls (within and interact, no obs mask: Bp 1,600 of the 50 trained
+    steps, 8 rows), the agent-row masks the FF agent and the linear mixer
+    take; and the same with the ground-truth groups of ``test_gt_factors``'s
+    diagnostic. Forward and gradients against the plain version, as
+    ``check_case`` does; ``blocked_row_share`` is the share of query rows
+    the pre-mask blocks whole."""
+    from refil_torch.envs.group_matching import GroupMatching
+    from refil_torch.config import load_config
+    from refil_torch.ops.masks import build_imagine_masks
+
+    cfg = load_config(alg="refil_group_matching", env="group_matching")
+    env = GroupMatching(**cfg["env_args"], device="cuda")
+    B, T1, Na = cfg["batch_size"], cfg["env_args"]["episode_limit"] + 1, env.env_info()["n_agents"]
+    _, obs = env.reset(B, generator=torch.Generator(device="cuda").manual_seed(5))
+    om = obs["obs_mask"][:, None].expand(B, T1, -1, -1).contiguous()
+    em = obs["entity_mask"][:, None].expand(B, T1, -1).contiguous()
+    gt = obs["gt_mask"][:, None].expand(B, T1, -1, -1).contiguous()
+    Ne, W = em.shape[-1], cfg["attn_embed_dim"]
+    rows = []
+    for kind, kw in (("imagined", {"generator": torch.Generator(device="cuda").manual_seed(6)}),
+                     ("gt", {"gt_mask": gt, "use_gt_factors": True})):
+        m = build_imagine_masks(om, em, Na, agent_rows=True, **kw)
+        post = em[..., :Na]
+        agent_pre = torch.cat([om[:, :, :Na], m.within, m.interact]).reshape(-1, Na, Ne)
+        agent_post = torch.cat([post] * 3).reshape(-1, Na)
+        cases = [(f"agent_x3_{kind}", agent_pre, agent_post)]
+        for half, mm in (("within", m.w_noobs), ("interact", m.i_noobs)):
+            cases.append((f"mixer_{kind}_{half}", mm[:, :-1].reshape(-1, Na, Ne),
+                          post[:, :-1].reshape(-1, Na)))
+        for i, (tag, pre, qm) in enumerate(cases):
+            rows.append(check_case(tag, pre.shape[0], Ne, Na, W, W, W, HEADS, dtype,
+                                   mask_rows=Na, seed=70 + i, path="group_matching",
+                                   masks=(pre.contiguous(), qm.contiguous())))
+    return rows
+
+
 def phase_kernels(attn_rows, gru_rows):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -764,8 +850,13 @@ def phase_kernels(attn_rows, gru_rows):
         rows.append(check_case("narrow_uneven", 3, 6, 6, 24, 32, 16, 2, dtype, seed=13))
         rows.append(check_case("combat_widths_uneven", 37, 16, 8, 128, 128, 128, HEADS, dtype,
                                mask_rows=16, seed=14))
+        rows += imagined_masks_cases(dtype)
         for i, (tag, T, R) in enumerate(gru_rows):
             rows.append(check_gru(tag, T, R, GRU_HIDDEN, dtype, seed=20 + i, timing=True))
+        if dtype == torch.float32:  # the flat slice's learner is float32
+            for i, (tag, T, R) in enumerate(flat_gru_shapes()):
+                rows.append(check_gru(tag, T, R, GRU_HIDDEN, dtype, seed=30 + i, timing=True,
+                                      path="flat"))
         for T in GRU_PLAN_STEPS:
             for R in GRU_PLAN_ROWS:
                 check_gru(f"plan_T{T}_R{R}", T, R, GRU_HIDDEN, dtype, seed=T + R)
@@ -784,12 +875,15 @@ def phase_kernels(attn_rows, gru_rows):
 # hyper_w_1 x2, hyper_b_1, hyper_w_final, V fwd+bwd, target mixer 4 fwd), 2
 # GRU forwards (agent x3, target agent) and 1 GRU backward. A rollout step
 # is one attention forward, and on combat one GRU forward (T = 1).
+# qmix on the flat env: no attention; 2 GRU forwards (live and target
+# agent) and 1 backward an iteration, one GRU forward (T = 1) a rollout step.
 PER_ITER = {"group_matching": {"entity_attn_fwd": 9, "entity_attn_bwd": 6},
             "combat": {"entity_attn_fwd": 15, "entity_attn_bwd": 10, "gru_fwd": 2,
-                       "gru_bwd": 1}}
+                       "gru_bwd": 1},
+            "flat": {"gru_fwd": 2, "gru_bwd": 1}}
 PER_STEP = {"group_matching": {"entity_attn_fwd": 1},
-            "combat": {"entity_attn_fwd": 1, "gru_fwd": 1}}
-PER_DIAG = {"group_matching": {"entity_attn_fwd": 8}, "combat": {}}
+            "combat": {"entity_attn_fwd": 1, "gru_fwd": 1}, "flat": {"gru_fwd": 1}}
+PER_DIAG = {"group_matching": {"entity_attn_fwd": 8}, "combat": {}, "flat": {}}
 GM_T_MAX = 8000  # 20 blocks of 400 env steps, 4 of them warm-up: 16 learner updates
 # blocks of <= 8 x 150 env steps run while t_env <= 7200: >= 7 blocks; the
 # ring holds batch_size 32 episodes after 4 blocks, so the classic loop,
@@ -799,6 +893,10 @@ CB_T_MAX = 7200
 # the fused combat run: >= 2 dispatches of >= 2 train blocks after the 4
 # warm-up blocks (a dispatch holds remaining // 1200 blocks, a power of two)
 CB_FUSED_T_MAX = 9600
+# the flat slice on 3m: blocks of <= 8 x 60 env steps, 4 warm-up blocks
+# (batch_size 32), then >= 8 train blocks, a dispatch holding
+# remaining // 480 blocks
+FLAT_T_MAX = 6000
 KERNEL_LAUNCHES = ("entity_attn_fwd", "entity_attn_bwd", "gru_fwd", "gru_bwd")
 
 
@@ -909,8 +1007,10 @@ def check_graphs(path, summary, per_iter, name_power):
 
 def phase_fused(path, name_power):
     argv = slice_argv(path, fused=True)
-    if path == "group_matching":
+    if path in ("group_matching", "flat"):
         summary, launches = run_slice(path, argv, name_power, 8)
+        if path == "flat" and "battle_won_mean" not in summary["last_logged"]:
+            raise AssertionError("flat: the runner logged no battle_won_mean")
     else:
         summary, launches = run_slice(path, argv, name_power, 4)
         multi = [d for d in summary["dispatches"] if d["train"] and d["blocks"] >= 2]
@@ -924,7 +1024,7 @@ def phase_fused(path, name_power):
 
 def phase_classic(path, name_power):
     argv = slice_argv(path, fused=False)
-    if path == "group_matching":
+    if path in ("group_matching", "flat"):
         run_slice(path, argv, name_power, 8)
     else:
         summary, _ = run_slice(path, argv, name_power, 4)
@@ -1286,7 +1386,7 @@ def kernels_line(rows, launches_by_path):
     """One entry per ported kernel, its numbers from the largest call of the
     combat slice in float32 (attention: agent x3, Bp = 14496; GRU: agent x3,
     T = 151, R = 768); ``launches`` from the combat slice's run, and the
-    Group Matching slice's beside it."""
+    Group Matching and flat slices' beside it."""
     attn = next(r for r in rows if r["kernel"] == "entity_attn" and r["path"] == "combat"
                 and r["case"] == "agent_x3" and r["dtype"] == "float32")
     gru = next(r for r in rows if r["kernel"] == "gru" and r["case"] == "agent_x3"
@@ -1302,11 +1402,15 @@ def kernels_line(rows, launches_by_path):
             "replaces": f"refil_tpu/ops/{replaces}",
             "launches": launches_by_path["combat"][name],
             "launches_group_matching": launches_by_path["group_matching"][name],
+            "launches_flat": launches_by_path["flat"][name],
             "max_abs_err": row[f"{kind}_max_abs_err"], "ms": row["ms"][kind],
             "plain_ms": row["ms"][f"{kind}_plain"], "bound_ms": row[f"{kind}_bound_ms"],
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row["ms"][f"{kind}_library"],
         })
     return {"kernels": out}
+
+
+SLICES = ("group_matching", "combat", "flat")
 
 
 def main(argv) -> None:
@@ -1320,8 +1424,8 @@ def main(argv) -> None:
     rows = phase_kernels(attn_rows, gru_rows)
     replay = None
     if not kernels_only:
-        launches = {path: phase_fused(path, name_power) for path in ("group_matching", "combat")}
-        for path in ("group_matching", "combat"):
+        launches = {path: phase_fused(path, name_power) for path in SLICES}
+        for path in SLICES:
             phase_classic(path, name_power)
         replay = (*phase_graph_vs_eager(name_power), name_power)
         ckpt, step = phase_resume(name_power)

@@ -1,5 +1,6 @@
-"""Action selection, port of ``refil_tpu/components/action_selectors.py``
-(``epsilon_greedy``; ``multinomial`` waits for the pi_logits configs)."""
+"""Action selection, port of ``refil_tpu/components/action_selectors.py``:
+``epsilon_greedy`` over Q-values and ``multinomial`` over policy
+probabilities."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -35,3 +36,25 @@ def epsilon_greedy(agent_qs: torch.Tensor, avail_actions: torch.Tensor,
         pick_random = torch.rand((B, Na), generator=generator,
                                  device=agent_qs.device) < epsilon
     return torch.where(pick_random, random_actions.to(greedy.dtype), greedy)
+
+
+def multinomial(agent_probs: torch.Tensor, avail_actions: torch.Tensor,
+                test_greedy: bool = True, test_mode: bool = False,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A sample from the availability-masked probabilities (B, Na, A); in
+    test mode with ``test_greedy``, their argmax. The sample is the argmax
+    of log(max(p, 1e-20)) plus Gumbel noise, as ``jax.random.categorical``
+    draws it; ``gumbel`` (B, Na, A) is that noise given explicitly, else
+    -log(Exp(1)) from ``generator``. Returns (B, Na) int64 actions; nothing
+    here waits for the device."""
+    masked = agent_probs.masked_fill(~avail_actions, 0.0)
+    if test_mode and test_greedy:
+        return masked.argmax(dim=-1)
+    if gumbel is None:
+        noise = torch.empty_like(masked, dtype=torch.float32).exponential_(generator=generator)
+        gumbel = -torch.log(noise)
+    return (torch.log(masked.clamp(min=1e-20)) + gumbel).argmax(dim=-1)
+
+
+SELECTOR_REGISTRY = {"epsilon_greedy": epsilon_greedy, "multinomial": multinomial}

@@ -15,6 +15,8 @@ tag permutations), so tests can hand it the draws the JAX env takes from its
 key splits; ``step`` draws nothing.
 
 Not ported here: ``heuristic_actions`` and ``render_state`` (ROADMAP).
+The flat env (``flat_env.py``) runs these dynamics on per-map pathing and
+terrain-height grids.
 Determinism on CUDA: every scatter-add with colliding indices is a one-hot
 product and a sum (no atomics); ``argmin``/``argmax`` pick the first index of
 a tie, as in JAX.
@@ -120,7 +122,7 @@ class EntityBattle:
                  reward_negative_scale: float = 0.5, reward_only_positive: bool = True,
                  reward_scale: bool = True, reward_scale_rate: float = 20.0,
                  reward_sparse: bool = False, map_size: float = 32.0, pathing_grid=None,
-                 difficulty: str = "7", device="cpu", **unused):
+                 terrain_height=None, difficulty: str = "7", device="cpu", **unused):
         if not entity_scheme:
             raise ValueError("EntityBattle only supports the entity scheme")
         # reference keys with no effect here (SC2 process options, flat-scheme
@@ -173,13 +175,17 @@ class EntityBattle:
         self.center = torch.tensor([map_size / 2.0, map_size / 2.0], dtype=torch.float32,
                                    device=dev)
 
-        # walkability grid (cell = 1 map unit, indexed [x, y]); None is the
-        # empty map every custom scenario uses: all walkable (the flat env
-        # passes real maps)
+        # walkability and terrain-height grids (cell = 1 map unit, indexed
+        # [x, y]); None is the empty map every custom scenario uses: all
+        # walkable, flat (the flat env passes real maps; only its
+        # observation reads the height)
         M = int(np.ceil(map_size))
         if pathing_grid is None:
             pathing_grid = np.ones((M, M), bool)
+        if terrain_height is None:
+            terrain_height = np.full((M, M), 0.5, np.float32)
         self.pathing_grid = torch.as_tensor(np.asarray(pathing_grid, bool), device=dev)
+        self.terrain_height = torch.as_tensor(np.asarray(terrain_height, np.float32), device=dev)
         self.trivial_pathing = bool(np.asarray(pathing_grid).all())
         self.ignores_pathing_t = torch.as_tensor(U.IGNORES_PATHING, device=dev)
 

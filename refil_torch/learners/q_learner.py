@@ -26,7 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ..controllers.mac import compute_dtype
-from ..modules.mixers import MIXER_REGISTRY, FlexQMixer, LinearFlexQMixer, VDNMixer
+from ..modules.mixers import MIXER_REGISTRY, FlexQMixer, LinearFlexQMixer, QMixer, VDNMixer
 from ..utils.rl_utils import build_td_lambda_targets
 
 NEG = -9999999.0  # Q of an unavailable action in the double-Q argmax
@@ -52,6 +52,9 @@ class QLearner:
         if mixer_name == "vdn":
             self.mixer = VDNMixer()
         elif mixer_name in ("flex_qmix", "lin_flex_qmix"):
+            if "entity_shape" not in env_info:
+                raise ValueError(f"mixer {mixer_name!r} mixes over entities; the flat scheme's "
+                                 "mixers are qmix and vdn")
             cls = FlexQMixer if mixer_name == "flex_qmix" else LinearFlexQMixer
             # the mixer's entities include the last-action block, as the
             # agent's inputs do
@@ -68,8 +71,19 @@ class QLearner:
                 generator=init_generator,
             ).to(self.device)
         elif mixer_name == "qmix":
-            raise NotImplementedError("mixer 'qmix' (QMixer over the flat state) is not ported "
-                                      "yet: ROADMAP queue A item 10, the flat path")
+            if "state_shape" not in env_info:
+                raise ValueError("mixer 'qmix' mixes over the flat scheme's state; this env "
+                                 "has none (its mixers: flex_qmix, lin_flex_qmix, vdn)")
+            self.mixer = QMixer(
+                n_agents=self.n_agents,
+                state_dim=int(env_info["state_shape"]),
+                mixing_embed_dim=args.mixing_embed_dim,
+                hypernet_layers=getattr(args, "hypernet_layers", 1),
+                hypernet_embed=getattr(args, "hypernet_embed", 64),
+                softmax_mixing_weights=bool(args.softmax_mixing_weights),
+                state_masks=getattr(args, "state_masks", None),
+                generator=init_generator,
+            ).to(self.device)
         elif mixer_name is not None:
             raise ValueError(f"mixer {mixer_name!r} not recognised; ported: "
                              f"{sorted(MIXER_REGISTRY)}")
@@ -129,14 +143,23 @@ class QLearner:
             else:
                 target_max_qvals = target_q.max(dim=3).values
 
-        m_ents, _, m_em, _ = mac.build_episode_inputs(batch)
         if self.mixer is not None:
-            chosen_tot = self.mixer(chosen, m_ents[:, :-1], m_em[:, :-1])
+            if isinstance(self.mixer, QMixer):
+                # the flat scheme: the mixer reads the global state vector
+                mix_in = (batch["state"],)
+            elif isinstance(self.mixer, VDNMixer):
+                mix_in = ()  # a sum, on either scheme
+            else:
+                # the entities include the last-action block, as the agent's do
+                m_ents, _, m_em, _ = mac.build_episode_inputs(batch)
+                mix_in = (m_ents, m_em)
+            live_in = tuple(x[:, :-1] for x in mix_in)
+            chosen_tot = self.mixer(chosen, *live_in)
             if self.is_imagine:
                 g = tuple(gr[:, :-1] for gr in groups)
-                caq_tot = self.mixer(caq_imagine, m_ents[:, :-1], m_em[:, :-1], imagine_groups=g)
+                caq_tot = self.mixer(caq_imagine, *live_in, imagine_groups=g)
             with torch.no_grad():
-                target_tot = self.target_mixer(target_max_qvals, m_ents, m_em)
+                target_tot = self.target_mixer(target_max_qvals, *mix_in)
         else:
             chosen_tot, target_tot = chosen, target_max_qvals
             caq_tot = caq_imagine if self.is_imagine else None

@@ -1,9 +1,9 @@
 """Agent Q-networks over entity sets, port of ``refil_tpu/modules/agents.py``.
 
-Ported: ``EntityAttentionFFAgent`` and ``ImagineEntityAttentionFFAgent`` (the
-Group Matching agents), ``EntityAttentionRNNAgent`` and
-``ImagineEntityAttentionRNNAgent`` (the combat agents). The flat agents
-(``RNNAgent``, ``FFAgent``) belong to the flat path, not ported yet.
+``EntityAttentionFFAgent`` and ``ImagineEntityAttentionFFAgent`` (the Group
+Matching agents), ``EntityAttentionRNNAgent`` and
+``ImagineEntityAttentionRNNAgent`` (the combat agents), and the flat agents
+``FFAgent`` and ``RNNAgent`` (the flat SMAC path).
 
 The whole (B, T) grid is flattened into one batched attention call, the GRU
 runs over the whole sequence at once (``GRUSequence``), and REFIL's ×3 [full,
@@ -187,7 +187,52 @@ class ImagineEntityAttentionRNNAgent(EntityAttentionRNNAgent):
                                 use_rand_gt_factors=use_rand_gt_factors)
 
 
+class FFAgent(nn.Module):
+    """Flat-observation MLP: fc1 -> ReLU -> fc2 -> ReLU -> fc3 -> Q.
+    ``inputs`` (B, T, Na, D); ``hidden`` passes through untouched, and
+    ``use_gru_kernel`` is accepted and ignored (``BasicMAC`` builds either
+    flat agent with the same arguments)."""
+
+    def __init__(self, input_shape: int, rnn_hidden_dim: int, n_actions: int,
+                 use_gru_kernel: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = TorchLinear(input_shape, rnn_hidden_dim, generator=generator)
+        self.fc2 = TorchLinear(rnn_hidden_dim, rnn_hidden_dim, generator=generator)
+        self.fc3 = TorchLinear(rnn_hidden_dim, n_actions, generator=generator)
+
+    def forward(self, inputs, hidden, **unused):
+        x = torch.relu(self.fc2(torch.relu(self.fc1(inputs))))
+        return self.fc3(x), hidden
+
+
+class RNNAgent(nn.Module):
+    """Flat-observation GRU agent: fc1 -> ReLU -> GRU over T -> fc2 -> Q.
+    ``inputs`` (B, T, Na, D); ``hidden`` (B, Na, H). The recurrence is
+    ``GRUSequence``'s: the CUDA kernels on the card (``use_gru_kernel``, the
+    config's ``use_pallas_gru``), at every T, the rollout's T = 1 included."""
+
+    def __init__(self, input_shape: int, rnn_hidden_dim: int, n_actions: int,
+                 use_gru_kernel: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rnn_hidden_dim = rnn_hidden_dim
+        self.fc1 = TorchLinear(input_shape, rnn_hidden_dim, generator=generator)
+        self.gru = GRUSequence(rnn_hidden_dim, rnn_hidden_dim, use_kernel=use_gru_kernel,
+                               generator=generator)
+        self.fc2 = TorchLinear(rnn_hidden_dim, n_actions, generator=generator)
+
+    def forward(self, inputs, hidden, **unused):
+        B, T, Na, _ = inputs.shape
+        H = self.rnn_hidden_dim
+        x = torch.relu(self.fc1(inputs))
+        x = x.transpose(1, 2).reshape(B * Na, T, H)
+        h_last, hs = self.gru(x, hidden.reshape(B * Na, H))
+        q = self.fc2(hs.reshape(B, Na, T, H).transpose(1, 2))
+        return q, h_last.reshape(B, Na, H)
+
+
 AGENT_REGISTRY = {
+    "ff": FFAgent,
+    "rnn": RNNAgent,
     "entity_attend_ff": EntityAttentionFFAgent,
     "imagine_entity_attend_ff": ImagineEntityAttentionFFAgent,
     "entity_attend_rnn": EntityAttentionRNNAgent,

@@ -1,17 +1,18 @@
 """Mixing networks, port of ``refil_tpu/modules/mixers.py``.
 
-Ported: ``AttentionHyperNet`` (all four modes), ``FlexQMixer`` (the combat
-mixer), ``LinearFlexQMixer`` (the Group Matching mixer) and ``VDNMixer``.
-``QMixer`` belongs to the flat path, not ported yet.
+``AttentionHyperNet`` (all four modes), ``FlexQMixer`` (the combat mixer),
+``LinearFlexQMixer`` (the Group Matching mixer), ``VDNMixer`` and ``QMixer``
+(the flat path's, over the global state vector).
 
 Shapes: ``entities`` (B, T, Ne, D); ``entity_mask`` (B, T, Ne) bool;
-``agent_qs`` (B, T, Na), or (B, T, 2·Na) on the imagined path. Mixers return
-``q_tot`` (B, T, 1).
+``states`` (B, T, S); ``agent_qs`` (B, T, Na), or (B, T, 2·Na) on the
+imagined path. Mixers return ``q_tot`` (B, T, 1).
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -166,8 +167,85 @@ class VDNMixer(nn.Module):
         return agent_qs.sum(dim=2, keepdim=True)
 
 
+class QMixer(nn.Module):
+    """QMIX's monotonic mixing over the flat state: hypernets from the state
+    give |W_1| (Na, E), b_1, |w_final| (E) and V; ``hypernet_layers`` 1 makes
+    W_1 and w_final one Linear each, 2 a Linear -> ReLU -> Linear of width
+    ``hypernet_embed``. ``softmax_mixing_weights`` takes a softmax over E
+    in place of the absolute value; ``mixer_non_lin`` is elu or tanh.
+
+    The imagined path takes ``imagine_groups`` = (groupA, groupB), each
+    (B, T, Ne) or broadcastable to it: each group's state is the state masked
+    by the union of its entities' ``state_masks`` rows (Ne, S), and W_1 runs
+    on each, so the 2·Na imagined Qs mix against one b_1, w_final and V."""
+
+    def __init__(self, n_agents: int, state_dim: int, mixing_embed_dim: int,
+                 hypernet_layers: int = 1, hypernet_embed: int = 64,
+                 softmax_mixing_weights: bool = False, mixer_non_lin: str = "elu",
+                 state_masks=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_agents = n_agents
+        self.state_dim = state_dim
+        self.mixing_embed_dim = E = mixing_embed_dim
+        self.hypernet_layers = int(hypernet_layers)
+        self.softmax_mixing_weights = softmax_mixing_weights
+        self.mixer_non_lin = mixer_non_lin
+        lin = lambda i, o: TorchLinear(i, o, generator=generator)  # noqa: E731
+        # the flax tree's names: hyper_w_1 (or hyper_w_1_0, hyper_w_1_1),
+        # hyper_w_final (or _0, _1), hyper_b_1, V_0, V_1
+        if self.hypernet_layers > 1:
+            self.hyper_w_1_0 = lin(state_dim, hypernet_embed)
+            self.hyper_w_1_1 = lin(hypernet_embed, E * n_agents)
+            self.hyper_w_final_0 = lin(state_dim, hypernet_embed)
+            self.hyper_w_final_1 = lin(hypernet_embed, E)
+        else:
+            self.hyper_w_1 = lin(state_dim, E * n_agents)
+            self.hyper_w_final = lin(state_dim, E)
+        self.hyper_b_1 = lin(state_dim, E)
+        self.V_0 = lin(state_dim, E)
+        self.V_1 = lin(E, 1)
+        self.register_buffer("state_masks", None if state_masks is None else
+                             torch.as_tensor(np.asarray(state_masks), dtype=torch.float32))
+
+    def _hyper(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        if self.hypernet_layers > 1:
+            return getattr(self, f"{name}_1")(torch.relu(getattr(self, f"{name}_0")(x)))
+        return getattr(self, name)(x)
+
+    def _weights(self, w: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(w, dim=-1) if self.softmax_mixing_weights else w.abs()
+
+    def forward(self, agent_qs, states, imagine_groups=None):
+        B, T, S = states.shape
+        E = self.mixing_embed_dim
+        st = states.reshape(B * T, S)
+        if imagine_groups is not None:
+            if self.state_masks is None:
+                raise ValueError("imagined flat mixing needs state_masks")
+            ne = self.state_masks.shape[0]
+            gA, gB = (g.reshape(B * T, ne, 1).to(st.dtype) for g in imagine_groups)
+            sm = self.state_masks.reshape(1, ne, S).to(st.dtype)
+            mask_a = (gA * sm).sum(dim=1).clamp(max=1.0)
+            mask_b = (gB * sm).sum(dim=1).clamp(max=1.0)
+            w1 = torch.cat([self._hyper("hyper_w_1", st * mask_a),
+                            self._hyper("hyper_w_1", st * mask_b)], dim=1)
+            qs = agent_qs.reshape(B * T, 1, self.n_agents * 2)
+        else:
+            w1 = self._hyper("hyper_w_1", st)
+            qs = agent_qs.reshape(B * T, 1, self.n_agents)
+        b1 = self.hyper_b_1(st).reshape(B * T, 1, E)
+        w1 = self._weights(w1.reshape(B * T, -1, E))
+        non_lin = F.elu if self.mixer_non_lin == "elu" else torch.tanh
+        hidden = non_lin(torch.bmm(qs, w1) + b1)  # (B*T, 1, E)
+        wf = self._weights(self._hyper("hyper_w_final", st))  # (B*T, E)
+        v = self.V_1(torch.relu(self.V_0(st))).reshape(B * T, 1, 1)
+        y = torch.bmm(hidden, wf[..., None]) + v
+        return y.reshape(B, T, 1)
+
+
 MIXER_REGISTRY = {
     "vdn": VDNMixer,
+    "qmix": QMixer,
     "flex_qmix": FlexQMixer,
     "lin_flex_qmix": LinearFlexQMixer,
 }

@@ -11,7 +11,11 @@ submodule as the port's modules name their attributes (``fc1``, ``attn``,
   * the attention and pooling layers keep the JAX layout (``in_trans``
     (D, 3E), ``out_kernel`` (E, O), ``out_bias`` (O,)): copied as they are;
   * so do the GRU's six projection children (``gru.ir`` ... ``gru.hn``:
-    ``kernel`` (fan_in, H), ``bias`` (H,) where the flax cell has one).
+    ``kernel`` (fan_in, H), ``bias`` (H,) where the flax cell has one);
+  * ``QMixer``'s layers are attributes under the flax names (``hyper_w_1``
+    or ``hyper_w_1_0``/``hyper_w_1_1``, ``hyper_b_1``, ``V_0``, ``V_1``, ...);
+    its ``state_masks`` is a buffer, not a parameter, as it is a module
+    attribute in flax.
 """
 from __future__ import annotations
 

@@ -29,9 +29,15 @@ replays only on the tensors it was captured over. ``checkpoint_path`` loads
 the newest step (or the one nearest ``load_step``) and, under ``evaluate``,
 runs only ``evaluate_sequential``.
 
+The scheme comes from ``env_args.entity_scheme``: the entity envs (Group
+Matching, ``entity_battle``) feed ``entity_mac`` and the entity mixers; the
+flat env (``flat_battle``, ``sc2``) feeds ``basic_mac`` and ``qmix`` over its
+global state, with its per-entity obs and state masks in ``args.obs_masks``
+and ``args.state_masks``.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-replays and eval videos, the mesh, multi-process runs, the scripted ally
-policy and the flat env.
+replays and eval videos, the mesh, multi-process runs and the scripted ally
+policy.
 
 Device: ``use_cuda`` (default True) runs on the CUDA card and raises where
 there is none; ``use_cuda=False`` runs on the CPU.
@@ -128,16 +134,7 @@ def refuse_unported(args) -> None:
                                       "(heuristic_actions, ROADMAP queue A item 7) is not "
                                       "ported to refil_torch yet")
     if args.env not in ENV_REGISTRY:
-        item = _UNPORTED_ENVS.get(args.env, "ROADMAP queue A")
-        raise NotImplementedError(f"env {args.env!r} is not ported yet ({item}); ported: "
-                                  f"{sorted(ENV_REGISTRY)}")
-
-
-# envs the JAX package has and the port does not yet -> the ROADMAP item
-_UNPORTED_ENVS = {
-    "flat_battle": "the flat path, ROADMAP queue A item 10",
-    "sc2": "the reference's name for flat_battle, ROADMAP queue A item 10",
-}
+        raise ValueError(f"env {args.env!r} not recognised; known: {sorted(ENV_REGISTRY)}")
 
 
 def build_env(args, device: torch.device):
@@ -192,8 +189,15 @@ def _sync(device: torch.device) -> None:
 
 def build_training(args, logger, device: torch.device):
     """The env, controller, runner and learner of a run, and its generators."""
+    # the scheme flags (refil_tpu/run.py:313-329)
+    args.entity_scheme = bool(args.env_args.get("entity_scheme", False))
     env = build_env(args, device)
-    env_info = env.env_info()
+    if args.entity_scheme:
+        env_info = env.env_info()
+    else:
+        # the flat env attaches its per-entity obs and state masks
+        env_info = env.env_info(args)
+        args.obs_masks, args.state_masks = env_info["masks"]
     gens = _generators(int(getattr(args, "seed", 0)), device)
     mac = MAC_REGISTRY[args.mac](args, env_info, device, generator=gens["init"])
     runner = VectorRunner(env, mac, args, logger, generator=gens["rollout"])

@@ -17,7 +17,8 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..components.action_selectors import epsilon_greedy
+from ..components.action_selectors import SELECTOR_REGISTRY, epsilon_greedy, multinomial
+from ..controllers.mac import pi_logits_transform
 from ..core.schedules import DecayThenFlatSchedule
 
 
@@ -60,10 +61,11 @@ class VectorRunner:
         self.schedule = DecayThenFlatSchedule(args.epsilon_start, args.epsilon_finish,
                                               args.epsilon_anneal_time, decay="linear")
         self.epsilon = self.schedule.eval_host(0)
-        if getattr(args, "action_selector", "epsilon_greedy") != "epsilon_greedy" or \
-                getattr(args, "agent_output_type", "q") != "q":
-            raise NotImplementedError("only the epsilon-greedy selector over Q-values is "
-                                      "ported (ROADMAP queue A item 3)")
+        self.output_type = getattr(args, "agent_output_type", "q")
+        self.selector = getattr(args, "action_selector", "epsilon_greedy")
+        if self.selector not in SELECTOR_REGISTRY:
+            raise ValueError(f"action_selector {self.selector!r} not recognised; known: "
+                             f"{sorted(SELECTOR_REGISTRY)}")
         self.train_stats: Dict[str, float] = {}
         self.test_stats: Dict[str, float] = {}
         self.train_returns: List[float] = []
@@ -105,7 +107,7 @@ class VectorRunner:
 
         for t in range(T):
             q, hidden_new = mac.forward_step(obs, last_oh, hidden)
-            actions = epsilon_greedy(q, obs["avail_actions"], epsilon, generator=gen)
+            actions = self.select(q, obs["avail_actions"], epsilon, test, gen)
             step_draws = None if env_draws is None else env_draws["step"][t]
             n_state, n_obs, rew, done, info = env.step(state, actions, generator=gen,
                                                        draws=step_draws)
@@ -150,6 +152,20 @@ class VectorRunner:
         )
         stats = {"ep_returns": ep_ret, "ep_lengths": ep_len, "final_info": final_info}
         return batch, stats
+
+    def select(self, q, avail, epsilon, test: bool, generator):
+        """The actions of one step, by ``agent_output_type`` and
+        ``action_selector`` (``refil_tpu/runners/vector_runner.py:115-135``):
+        pi_logits -> ``pi_logits_transform`` then ``multinomial``; else the
+        configured selector over the Q-values."""
+        test_greedy = bool(getattr(self.args, "test_greedy", True))
+        if self.output_type == "pi_logits":
+            probs = pi_logits_transform(q, avail, epsilon, test, mask_before_softmax=bool(
+                getattr(self.args, "mask_before_softmax", True)))
+            return multinomial(probs, avail, test_greedy, test, generator=generator)
+        if self.selector == "multinomial":
+            return multinomial(q, avail, test_greedy, test, generator=generator)
+        return epsilon_greedy(q, avail, epsilon, generator=generator)
 
     def batch_spec(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """(shape of one episode, dtype) of each plane ``rollout`` returns,

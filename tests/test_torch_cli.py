@@ -1,7 +1,7 @@
 """refil_torch's CLI end to end on the CPU, its device rule, the features it
 still refuses (replays and eval videos, the mesh, multi-process runs, the
-scripted allies, the flat path), and the rule that the port imports nothing
-of JAX."""
+scripted allies), the flat path's pieces refused on the entity scheme, and
+the rule that the port imports nothing of JAX."""
 import ast
 import glob
 import math
@@ -60,9 +60,16 @@ def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):
                                    "heuristic_ai=True", "save_replay=True",
                                    ("evaluate=True", "video_path=eval.mp4")])
 def test_unported_features_raise(tmp_path, extra):
+    """Unported features raise NotImplementedError. The flat path is ported:
+    its agent, mixer and env asked for in Group Matching's entity-scheme
+    config are a scheme mismatch, refused with a ValueError."""
+    expected = ValueError if extra in FLAT_ON_ENTITY_SCHEME else NotImplementedError
     extra = (extra,) if isinstance(extra, str) else extra
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(expected):
         tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=False", *extra))
+
+
+FLAT_ON_ENTITY_SCHEME = ("agent=rnn", "mixer=qmix", "env=flat_battle", "env=sc2")
 
 
 def test_cli_parse_matches_reference():

@@ -144,7 +144,8 @@ def test_optax_clip_rule_and_td_lambda_refused():
     np.testing.assert_allclose(float(clipped), 1e-3, rtol=1e-4)
 
     # TD(lambda) is ported (tests/test_torch_td_lambda.py); the flat state's
-    # QMixer is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # QMixer is too (tests/test_torch_flat_learner.py), and on an entity env,
+    # which has no state, it is refused by name
+    with pytest.raises(ValueError, match="flat scheme's state"):
         QLearner(mac, _args(tconfig, "refil_group_matching", ["mixer=qmix"]),
                  env.env_info(), "cpu")
