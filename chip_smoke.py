@@ -77,18 +77,39 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      3-8sz_symmetric at the config's 160 test episodes a scenario: its
      stats, seconds a scenario and launches (the attention at Bp 160 and
      the GRU at T 1, R 1,280 are among phase 3's shapes).
-  10. own kernels, last (once torch.profiler has run in a process, its
+  10. heuristic: ``heuristic_actions`` on the card against the port's on
+     the CPU for the same states (a CPU rollout of 20 steps of 256 envs
+     driven by the CPU heuristic; 3-8MMM_symmetric, whose Medivacs heal,
+     and 3-8sz_symmetric; both ``heuristic_rest`` modes), integer-equal,
+     each card call under ``set_sync_debug_mode("error")``; then phase 4's
+     fused combat run, logging every block, with ``env_args.heuristic_ai``
+     and without it: each run's env-steps/s, seconds a replayed train
+     block and win share, launch counts checked as the slice's.
+  11. record: an eval-only run of run A's checkpoint (one rollout of 160
+     envs) with ``save_replay``, and ``video_path`` where matplotlib and
+     imageio import (else ``"video": null`` with the import errors): the
+     replay's keys are the JAX package's, one frame a step, and frame 0's
+     positions equal the eval's reset state (rebuilt from the test
+     generator's seed) stepped once with the restored agent's greedy
+     actions; a video that fails to write fails the phase.
+  12. distributed: a fused combat run as one NCCL process
+     (``distributed=True``, world size 1, the collectives captured in the
+     graphs) against the undistributed run: every logged loss within 1e-5
+     of max(1, |loss|), the graphs' recorded launches with one all_gather a
+     block and one all_reduce an update, both runs' env-steps/s.
+  13. own kernels, last (once torch.profiler has run in a process, its
      later launches are slower): a profile of one attention forward, one
      attention backward and one GRU backward call, which must run only the
      repository's kernels; then one replay of the combat train block under
      the profiler: its attention and GRU launches, counted by a kernel only
      each launch runs, are the ones its capture recorded, and no library
      attention or recurrence kernel (SDPA, flash, cuDNN) runs in it.
-  11. the ``kernels`` line (launches from the fused combat run, with the
+  14. the ``kernels`` line (launches from the fused combat run, with the
      fused Group Matching and flat runs' beside them) and the last line
      ``{"ok": true, "device": ...}``.
 
-Each phase that drives a path (4, 5, 6, both runs of 7, 8's resume, 9)
+Each phase that drives a path (4, 5, 6, both runs of 7, 8's resume, 9 and
+the runs of 10, 11 and 12)
 sets the launch counts to 0 just before it and reads them just after (8's
 preempted run is another process, whose counts this one cannot read). It exits non-zero, printing no result, where CUDA
 is not available or the ``refil_torch`` package is not beside it.
@@ -924,12 +945,12 @@ def read_launches(graphs=None):
 
     out = {**entity_attn.launches, **gru_kernel.launches}
     for g in (graphs or {}).values():
-        for k, n in g["launches"].items():
-            out[k] += n * (g["replays"] - 1)
+        for k in out:  # a mesh's graph also records its collectives
+            out[k] += g["launches"].get(k, 0) * (g["replays"] - 1)
     return out
 
 
-def run_slice(path, argv, name_power, min_updates, phase="slice"):
+def run_slice(path, argv, name_power, min_updates, phase="slice", collectives=False):
     from refil_torch import main as tmain
 
     # no preemption guard in this process: a SIGTERM sent to the smoke must
@@ -976,19 +997,24 @@ def run_slice(path, argv, name_power, min_updates, phase="slice"):
     if launches != expected or min(launches[k] for k in PER_ITER[path]) <= 0:
         raise AssertionError(f"{path}: kernel launches {launches} != expected {expected}")
     if summary["loop"] == "fused":
-        check_graphs(path, summary, per_iter, name_power)
+        check_graphs(path, summary, per_iter, name_power, collectives)
     return summary, launches
 
 
-def check_graphs(path, summary, per_iter, name_power):
+def check_graphs(path, summary, per_iter, name_power, collectives=False):
     """The fused run replayed every block after the first of its kind, and
-    each capture recorded one block's launches."""
+    each capture recorded one block's launches; with ``collectives`` (a
+    data mesh) also its collectives: one all_gather a block and one
+    all_reduce an update."""
     graphs = summary["graphs"]
     warm = summary["blocks"] - summary["updates"]
     T = summary["episode_limit"]
     want = {"warm": (warm - 2, expected_launches(path, 0, T, 0)),
             "train": (summary["updates"] - 2,
                       expected_launches(path, per_iter, T, int(summary["diag_calls"] > 0)))}
+    if collectives:
+        want["warm"][1].update(all_gather=1, all_reduce=0)
+        want["train"][1].update(all_gather=1, all_reduce=per_iter)
     emit("graphs", path=path, card=name_power, **graphs)
     for kind, (replays, launches) in want.items():
         g = graphs.get(kind)
@@ -1379,7 +1405,216 @@ def phase_eval(name_power, ckpt, step):
          launches=launches, expected_launches=expected)
     if not ok:
         raise AssertionError("eval: the eval-only run failed its checks")
+
+
+# ---------------------------------------------------------------- slice 8
+HEURISTIC_SCENARIOS = ("3-8MMM_symmetric", "3-8sz_symmetric")
+HEURISTIC_ENVS, HEURISTIC_STEPS = 256, 20
+
+
+def _to(state, dev):
+    return type(state)(*(v.to(dev) for v in state))
+
+
+def check_heuristic_on_card(name_power):
+    """``heuristic_actions`` on the card against the port's on the CPU for the
+    same states: a CPU rollout of HEURISTIC_STEPS steps driven by the CPU
+    heuristic, each state copied to the card, both emit modes, integer-equal,
+    each card call under ``set_sync_debug_mode("error")`` (a captured block
+    holds it). A mismatch is printed with the distances it chose between."""
+    from refil_torch.envs.combat.env import EntityBattle, _norm
+    from refil_torch.envs.combat.scenarios import SCENARIO_REGISTRY
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = []
+    for scenario in HEURISTIC_SCENARIOS:
+        for rest in (False, True):
+            cpu = EntityBattle(scenario_dict=SCENARIO_REGISTRY[scenario](), heuristic_rest=rest)
+            card = EntityBattle(scenario_dict=SCENARIO_REGISTRY[scenario](), heuristic_rest=rest,
+                                device=dev)
+            state, obs = cpu.reset(HEURISTIC_ENVS, generator=torch.Generator().manual_seed(5))
+            mismatches, compared = [], 0
+            for t in range(HEURISTIC_STEPS):
+                want = cpu.heuristic_actions(state, obs["avail_actions"])
+                on_card, avail = _to(state, dev), obs["avail_actions"].to(dev)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = card.heuristic_actions(on_card, avail)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                got = got.cpu()
+                compared += got.numel()
+                for b, a in torch.nonzero(got != want).tolist()[:5]:
+                    d = _norm(state.a_pos[b, a][None] - state.e_pos[b]).tolist()
+                    mismatches.append({"step": t, "env": b, "agent": a, "cpu": int(want[b, a]),
+                                       "card": int(got[b, a]), "enemy_distances": d})
+                state, obs, _, _, _ = cpu.step(state, want)
+            rows.append({"scenario": scenario, "heuristic_rest": rest, "actions": compared,
+                         "mismatches": mismatches})
+    ok = all(not r["mismatches"] for r in rows)
+    emit("heuristic_check", card=name_power, ok=ok, steps=HEURISTIC_STEPS,
+         envs=HEURISTIC_ENVS, cases=rows, sync_free=True)
+    if not ok:
+        raise AssertionError("heuristic: the card's actions differ from the CPU's")
+
+
+def phase_heuristic(name_power):
+    """The heuristic on the card against the CPU; then the fused combat
+    slice's run (phase 4's command, logging every block) with and without
+    ``env_args.heuristic_ai=True``, launch counts checked as the slice's:
+    with it, each later block replays a graph that holds the heuristic.
+    Prints both runs' env-steps/s, seconds a replayed train block and win
+    share over their logged training blocks."""
+    check_heuristic_on_card(name_power)
+    runs = {}
+    for tag, extra in (("heuristic", ["env_args.heuristic_ai=True"]), ("learner", [])):
+        out = fresh_dir(os.path.join(SMOKE_RESULTS, f"heuristic_{tag}"))
+        argv = [a for a in slice_argv("combat", fused=True)
+                if not a.startswith("local_results_path=")]
+        summary, _ = run_slice("combat", [*argv, *extra, "runner_log_interval=1",
+                                          f"local_results_path={out}"], name_power, 4,
+                               phase="heuristic_run")
+        won = [v for _, v in logged(out, "battle_won_mean")]
+        runs[tag] = {"env_steps_per_s": summary["env_steps_per_s"],
+                     "replayed_train_seconds_per_block": _replayed(summary),
+                     "battle_won_mean": float(np.mean(won)) if won else None,
+                     "blocks_logged": len(won),
+                     "ep_length_mean": float(np.mean([v for _, v in
+                                                      logged(out, "ep_length_mean")]))}
+    ok = all(r["battle_won_mean"] is not None for r in runs.values())
+    emit("heuristic", card=name_power, ok=ok, **runs)
+    if not ok:
+        raise AssertionError("heuristic: a run logged no battle_won_mean")
+
+
+RENDER_KEYS = ("pos", "health", "shield", "health_max", "shield_max", "type", "active",
+               "is_ally", "target", "facing", "facing_valid", "cd_ratio")
+
+
+def phase_record(name_power, ckpt, step):
+    """An eval-only run of run A's checkpoint (one greedy rollout of the
+    config's test_nepisode envs over drawn scenarios) with ``save_replay``,
+    and ``video_path`` where matplotlib and imageio import (else the video
+    is null, with the import error). The replay has the JAX package's keys
+    and one frame a step; its frame 0 is the eval rollout's reset state
+    after one step: the phase rebuilds that state from the test generator's
+    seed, steps it with the restored agent's greedy actions, and requires
+    frame 0's positions to equal it exactly (and its types and active
+    slots the reset's). Launches: one attention and one GRU forward a step."""
+    from refil_torch import config as tconfig
+    from refil_torch import main as tmain
+    from refil_torch import run as trun
+    from refil_torch.main import parse_cli
+
+    out_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "record"))
+    missing = []
+    for module in ("matplotlib", "imageio"):
+        try:
+            __import__(module)
+        except ImportError as e:
+            missing.append(f"{type(e).__name__}: {e}")
+    no_video = "; ".join(missing) or None
+    argv = ["--config=refil", "--env-config=entity_battle", "with", "scenario=3-8sz_symmetric",
+            f"checkpoint_path={ckpt}", f"load_step={step}", "use_cuda=True", "save_replay=True",
+            f"local_results_path={out_dir}"]
+    if no_video is None:
+        argv.append(f"video_path={os.path.join(out_dir, 'eval')}")
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = tmain.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    T = summary["episode_limit"]
+    z = np.load(summary["replay"])
+    keys_ok = sorted(z.files) == sorted(RENDER_KEYS)
+    frames_ok = keys_ok and all(z[k].shape[0] == T for k in RENDER_KEYS)
+
+    # the eval rollout's first step, rebuilt
+    alg, env_name, overrides = parse_cli(argv)
+    args = tconfig.config_to_args(tconfig.args_sanity_check(tconfig.load_config(
+        alg=alg, env=env_name, overrides=overrides)))
+    dev = trun.resolve_device(args)
+    runner, learner, gens = trun.build_training(args, None, dev)
+    trun._load_checkpoint(os.path.join(ckpt, str(step)), learner)
+    n = summary["eval_episodes"]
+    with torch.no_grad():
+        state, obs = runner.env.reset(n, generator=gens["test"], test=True)
+        q, _ = runner.mac.forward_step(obs, torch.zeros((n, runner.n_agents, runner.n_actions),
+                                                       device=dev),
+                                       runner.mac.init_hidden(n))
+        greedy = q.masked_fill(~obs["avail_actions"], float("-inf")).argmax(-1)
+        after = runner.env.render_state(runner.env.step(state, greedy)[0])
+    reset = {k: v.cpu().numpy() for k, v in runner.env.render_state(state).items()}
+    first_ok = frames_ok and bool(
+        np.array_equal(z["pos"][0], after["pos"].cpu().numpy())
+        and all(np.array_equal(z[k][0], reset[k]) for k in ("type", "active", "is_ally")))
+    video = summary["video"]
+    video_ok = no_video is not None or (video is not None and os.path.getsize(video) > 0)
+    expected = expected_launches("combat", 0, T, 0)
+    ok = (summary["loop"] == "evaluate" and keys_ok and frames_ok and first_ok and video_ok
+          and launches == expected)
+    emit("record", card=name_power, ok=ok, command="python -m refil_torch.main " + " ".join(argv),
+         wall_seconds=wall, seconds_per_scenario=summary["eval_seconds"], episodes=n,
+         replay=summary["replay"], replay_bytes=os.path.getsize(summary["replay"]),
+         replay_keys=sorted(z.files), frames=int(z["pos"].shape[0]) if keys_ok else None,
+         frame0_positions_equal_rebuilt_step=first_ok, video=video,
+         video_bytes=os.path.getsize(video) if video else None,
+         video_reason=no_video, battle_won_mean=summary["eval"].get("test_battle_won_mean"),
+         launches=launches, expected_launches=expected)
+    if not ok:
+        raise AssertionError("record: the recorded eval failed its checks")
     shutil.rmtree(ckpt, ignore_errors=True)
+
+
+DIST_T_MAX = 6000
+
+
+def phase_distributed(name_power):
+    """A fused combat run at full width with ``distributed=True`` as one
+    NCCL process, against the undistributed run at the same seed: every
+    loss logged (each update) equal within 1e-5 of max(1, |loss|), both
+    runs' launches checked as a slice's, and the distributed graphs' recorded
+    launches holding the collectives (one all_gather a block, one
+    all_reduce an update). At world size 1 NCCL launches no kernel (its
+    all_gather is one device-to-device copy, its in-place all_reduce
+    nothing), so equal losses over the replayed blocks are what show the
+    captured all_gather's copy replays."""
+    import torch.distributed as dist
+
+    from refil_torch.parallel.gate import free_port
+
+    off_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "dist_off"))
+    on_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "dist_on"))
+    s_off, _ = run_slice("combat", resume_argv("dist_off", DIST_T_MAX), name_power, 4,
+                         phase="distributed_run")
+    s_on, _ = run_slice("combat", resume_argv(
+        "dist_on", DIST_T_MAX, "distributed=True", "num_processes=1", "process_id=0",
+        f"coordinator_address=127.0.0.1:{free_port()}"), name_power, 4,
+        phase="distributed_run", collectives=True)
+    a, b = logged(off_dir, "loss"), logged(on_dir, "loss")
+    same_t = [t for t, _ in a] == [t for t, _ in b]
+    diffs = [abs(va - vb) / max(1.0, abs(va)) for (_, va), (_, vb) in zip(a, b)]
+    train = s_on["graphs"]["train"]["launches"]
+    ok = (bool(a) and same_t and max(diffs) <= 1e-5 and s_on["world_size"] == 1
+          and not dist.is_initialized() and train.get("all_reduce", 0) > 0)
+    emit("distributed", card=name_power, ok=ok, backend="nccl", world_size=s_on["world_size"],
+         losses_compared=len(a), same_t_env=same_t, max_scaled_loss_diff=max(diffs, default=None),
+         bit_equal=a == b, tol=1e-5, train_graph_launches=train,
+         env_steps_per_s=s_on["env_steps_per_s"],
+         undistributed_env_steps_per_s=s_off["env_steps_per_s"],
+         replayed_seconds_per_block=_replayed(s_on),
+         undistributed_replayed_seconds_per_block=_replayed(s_off))
+    if not ok:
+        raise AssertionError("distributed: the one-process NCCL run disagrees with the "
+                             "undistributed run")
+
+
+def _replayed(summary):
+    train = [d for d in summary["dispatches"] if d["train"]]
+    blocks = sum(d["replays"] for d in train)
+    return sum(d["replay_seconds"] for d in train) / blocks if blocks else None
 
 
 def kernels_line(rows, launches_by_path):
@@ -1431,6 +1666,9 @@ def main(argv) -> None:
         ckpt, step = phase_resume(name_power)
         phase_preempt(name_power)
         phase_eval(name_power, ckpt, step)
+        phase_heuristic(name_power)
+        phase_record(name_power, ckpt, step)
+        phase_distributed(name_power)
     # last: once torch.profiler has run in a process, every later kernel
     # launch there is slower, and the slices' env-steps/s would show it
     own_kernels_only(replay)

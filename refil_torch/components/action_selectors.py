@@ -1,6 +1,11 @@
 """Action selection, port of ``refil_tpu/components/action_selectors.py``:
 ``epsilon_greedy`` over Q-values and ``multinomial`` over policy
-probabilities."""
+probabilities.
+
+``shard`` (a ``parallel.mesh.MeshContext``): the Q-values are this rank's
+rows of a global batch ``shard.n_data`` times larger, and every draw is made
+at the global shape and cut to those rows, so the ranks together draw what
+one process selecting for the whole batch draws."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -8,11 +13,16 @@ from typing import Optional, Union
 import torch
 
 
+def _rows(x: torch.Tensor, shard) -> torch.Tensor:
+    """A draw made at the global batch shape, cut to this rank's rows."""
+    return x if shard is None else shard.shard(x)
+
+
 def epsilon_greedy(agent_qs: torch.Tensor, avail_actions: torch.Tensor,
                    epsilon: Union[float, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    pick_random: Optional[torch.Tensor] = None,
-                   random_actions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   random_actions: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
     """Per-agent ε-greedy over available actions: Bernoulli(ε) per agent
     chooses a uniform draw over the available actions, else the argmax of the
     availability-masked Q-values.
@@ -24,24 +34,25 @@ def epsilon_greedy(agent_qs: torch.Tensor, avail_actions: torch.Tensor,
     device, so a CUDA graph can capture it.
     """
     B, Na, A = agent_qs.shape
+    Bd = B if shard is None else B * shard.n_data
     greedy = agent_qs.masked_fill(~avail_actions, float("-inf")).argmax(dim=-1)
     if random_actions is None:
         # argmax of avail / Exp(1): the draw torch.multinomial makes for one
         # sample (same numbers from the same generator state), without its
         # host-side checks of the probabilities, which wait for the device
         probs = avail_actions.float()
-        noise = torch.empty_like(probs).exponential_(generator=generator)
-        random_actions = (probs / noise).argmax(dim=-1)
+        noise = torch.empty((Bd, Na, A), device=probs.device).exponential_(generator=generator)
+        random_actions = (probs / _rows(noise, shard)).argmax(dim=-1)
     if pick_random is None:
-        pick_random = torch.rand((B, Na), generator=generator,
-                                 device=agent_qs.device) < epsilon
+        pick_random = _rows(torch.rand((Bd, Na), generator=generator,
+                                       device=agent_qs.device), shard) < epsilon
     return torch.where(pick_random, random_actions.to(greedy.dtype), greedy)
 
 
 def multinomial(agent_probs: torch.Tensor, avail_actions: torch.Tensor,
                 test_greedy: bool = True, test_mode: bool = False,
                 generator: Optional[torch.Generator] = None,
-                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                gumbel: Optional[torch.Tensor] = None, shard=None) -> torch.Tensor:
     """A sample from the availability-masked probabilities (B, Na, A); in
     test mode with ``test_greedy``, their argmax. The sample is the argmax
     of log(max(p, 1e-20)) plus Gumbel noise, as ``jax.random.categorical``
@@ -52,8 +63,10 @@ def multinomial(agent_probs: torch.Tensor, avail_actions: torch.Tensor,
     if test_mode and test_greedy:
         return masked.argmax(dim=-1)
     if gumbel is None:
-        noise = torch.empty_like(masked, dtype=torch.float32).exponential_(generator=generator)
-        gumbel = -torch.log(noise)
+        B, Na, A = masked.shape
+        Bd = B if shard is None else B * shard.n_data
+        noise = torch.empty((Bd, Na, A), device=masked.device).exponential_(generator=generator)
+        gumbel = -torch.log(_rows(noise, shard))
     return (torch.log(masked.clamp(min=1e-20)) + gumbel).argmax(dim=-1)
 
 

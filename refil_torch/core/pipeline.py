@@ -32,6 +32,15 @@ Explicit generators take the place of the JAX key: the runner's (rollout),
 the pipeline's (sample) and the learner's (imagine groups, diagnostics).
 Each is registered with the graphs, so every replay draws new numbers.
 
+With a data mesh (``parallel/mesh.py``, one process per device), a block
+rolls out this rank's shard of the envs from the global draws and gathers
+the whole episode batch into a ring replicated on every rank (one
+``all_gather``); the sample is drawn at the global shape on every rank alike,
+each rank trains on its slice, and each update sums the gradients and the
+metrics over the ranks (one ``all_reduce``). On CUDA both collectives are
+captured into the graphs with the rest of the block (NCCL); the mesh counts
+them beside the kernels' launches.
+
 The kernel wrappers count launches in Python, which a replay does not run:
 ``graphs[kind].launches`` holds what the capture recorded (the wrappers'
 counts rose by that much while it recorded and launched nothing), so a
@@ -85,11 +94,12 @@ class CapturedBlock:
                 "instantiate_seconds": self.instantiate_seconds, "pool_bytes": self.pool_bytes}
 
 
-def launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counts."""
+def launch_counts(mesh=None) -> Dict[str, int]:
+    """The kernel wrappers' launch counts, and the mesh's collectives'."""
     from ..ops import entity_attn, gru_kernel
 
-    return {**entity_attn.launches, **gru_kernel.launches}
+    return {**entity_attn.launches, **gru_kernel.launches,
+            **({} if mesh is None else mesh.launches)}
 
 
 def _flatten(tree, path=()) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
@@ -103,9 +113,7 @@ class FusedPipeline:
     (``VectorRunner.rollout``, ``QLearner.updates``)."""
 
     def __init__(self, runner, learner, buffer_size: int, args, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("the fused pipeline over a device mesh (ROADMAP queue A "
-                                      "item 11) is not ported to refil_torch yet")
+        self.mesh = mesh  # Optional[parallel.mesh.MeshContext]
         self.runner = runner
         self.learner = learner
         self.device = learner.device
@@ -121,6 +129,10 @@ class FusedPipeline:
         self.buffer_dtype = str(getattr(args, "buffer_dtype", "float32"))
         if self.buffer_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"buffer_dtype must be float32 or bfloat16, not {self.buffer_dtype!r}")
+        if mesh is not None:
+            mesh.check_divisible(self.batch_size_run, "batch_size_run")
+            mesh.check_divisible(self.batch_size, "batch_size")
+            mesh.check_divisible(self.buffer_size, "buffer_size")
         self.training_iters = int(args.training_iters)
         self.target_update_interval = int(args.target_update_interval)
         self.gt_diag = bool(getattr(args, "test_gt_factors", False)) and learner.has_gt_diagnostics
@@ -169,7 +181,7 @@ class FusedPipeline:
     def _block_impl(self, ps: PipelineState, train: bool) -> Dict[str, Any]:
         B = self.batch_size_run
         epsilon = self.runner.schedule.eval(ps.t_env.float())
-        batch, roll = self.runner.rollout(epsilon, B)
+        batch, roll = self.runner.rollout(epsilon, B, shard=self.mesh)
         slots = ps.buffer_index.long() + self._block_slots
         for k, buf in ps.ring.items():
             buf.index_copy_(0, slots, batch[k].to(buf.dtype))
@@ -192,7 +204,7 @@ class FusedPipeline:
         if idx is None:
             idx = self.sample_idx(ps.episodes_in_buffer, ps.generators["sample"])
         samples = {k: buf[idx].to(self._dtypes[k]) for k, buf in ps.ring.items()}
-        metrics = self.learner.updates(samples, draws.get("imagine"))
+        metrics = self.learner.updates(samples, draws.get("imagine"), mesh=self.mesh)
         if self.gt_diag:
             last = {k: v[-1] for k, v in samples.items()}
             metrics.update(self.learner.gt_diagnostics(last, draws.get("diag")))
@@ -244,17 +256,21 @@ class FusedPipeline:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        before = launch_counts()
+        before = launch_counts(self.mesh)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in ps.generators.values():
             graph.register_generator_state(gen)
+        # NCCL's watchdog thread queries events while a capture runs: a
+        # global-mode capture would forbid that, so a mesh's capture is
+        # thread-local
+        mode = "global" if self.mesh is None else "thread_local"
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream):
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode=mode):
             out = self.block_device(ps, kind == "train")
         t1 = time.perf_counter()
         graph.instantiate()
         t2 = time.perf_counter()
-        after = launch_counts()
+        after = launch_counts(self.mesh)
         rec = CapturedBlock(graph=graph, out=out, state=ps,
                             launches={k: after[k] - before[k] for k in after},
                             capture_seconds=t1 - t0, instantiate_seconds=t2 - t1,

@@ -14,7 +14,11 @@ scenario index, the rotation uniform, the per-group jitter uniforms and the
 tag permutations), so tests can hand it the draws the JAX env takes from its
 key splits; ``step`` draws nothing.
 
-Not ported here: ``heuristic_actions`` and ``render_state`` (ROADMAP).
+``heuristic_actions`` is the scripted ally policy (``heuristic_ai``) in both
+of its emit modes (``heuristic_rest``); ``render_state`` and, on a recording
+step (``step(..., record=True)``), ``info["render"]`` are what ``render.py``
+draws and ``save_replay`` stores. A step that does not record computes none
+of the render extras, so a captured training block holds no kernel for them.
 The flat env (``flat_env.py``) runs these dynamics on per-map pathing and
 terrain-height grids.
 Determinism on CUDA: every scatter-add with colliding indices is a one-hot
@@ -122,16 +126,16 @@ class EntityBattle:
                  reward_negative_scale: float = 0.5, reward_only_positive: bool = True,
                  reward_scale: bool = True, reward_scale_rate: float = 20.0,
                  reward_sparse: bool = False, map_size: float = 32.0, pathing_grid=None,
-                 terrain_height=None, difficulty: str = "7", device="cpu", **unused):
+                 terrain_height=None, difficulty: str = "7", heuristic_rest: bool = False,
+                 device="cpu", **unused):
         if not entity_scheme:
             raise ValueError("EntityBattle only supports the entity scheme")
         # reference keys with no effect here (SC2 process options, flat-scheme
-        # observation flags); run.py refuses heuristic_ai / heuristic_rest set
+        # observation flags); heuristic_ai is the runner's switch
         warn_unused_env_args(
             "EntityBattle", unused,
             accepted=("continuing_episode", "game_version", "seed", "replay_dir",
-                      "replay_prefix", "debug", "heuristic_ai", "heuristic_rest",
-                      "obs_all_health",
+                      "replay_prefix", "debug", "heuristic_ai", "obs_all_health",
                       "obs_instead_of_state", "obs_own_health", "obs_last_action",
                       "obs_pathing_grid", "obs_terrain_height", "obs_timestep_number",
                       "state_last_action", "state_timestep_number"))
@@ -142,6 +146,7 @@ class EntityBattle:
                 "EntityBattle: unknown difficulty %r (known: %s); defaulting to tier 2 "
                 "(SC2 '7'-'9', focus-fire)", self.difficulty, sorted(_DIFF_TIER))
         self.enemy_tier = _DIFF_TIER.get(self.difficulty, 2)
+        self.heuristic_rest = bool(heuristic_rest)
         self.sc = compile_scenarios(scenario_dict)
         self.scenario_names = self.sc.names
         self.rotate = bool(scenario_dict.get("rotate", False))
@@ -412,10 +417,11 @@ class EntityBattle:
 
     # ------------------------------------------------------------------
     def step(self, state: CombatState, actions: torch.Tensor,
-             generator: Optional[torch.Generator] = None, draws=None):
+             generator: Optional[torch.Generator] = None, draws=None, record: bool = False):
         """(state, obs, reward (B,), done (B,), info). Draws nothing: the
-        arguments are the runner's interface."""
-        new_state, reward, done, info = self.step_state(state, actions)
+        generator and draws are the runner's interface. ``record`` adds
+        ``info["render"]`` (``step_state``)."""
+        new_state, reward, done, info = self.step_state(state, actions, record)
         return new_state, self.observe(new_state), reward, done, info
 
     def _focus_fire(self, state, d_ea, nearest_a, e_alive):
@@ -443,8 +449,9 @@ class EntityBattle:
             picks.append(tgt)
         return torch.stack(picks, 1)
 
-    def step_state(self, state: CombatState, actions: torch.Tensor):
-        """Combat dynamics only: (state, reward, done, info)."""
+    def step_state(self, state: CombatState, actions: torch.Tensor, record: bool = False):
+        """Combat dynamics only: (state, reward, done, info). With ``record``,
+        ``info["render"]`` holds this step's render extras."""
         Na, Ne = self.max_na, self.max_ne
         a_alive = (state.a_health > 0) & state.a_active
         e_alive = (state.e_health > 0) & state.e_active
@@ -625,7 +632,107 @@ class EntityBattle:
             a_energy=a_energy, e_health=e_health_new, e_shield=e_shield_new, e_cd=e_cd,
             a_last_hit=a_last_hit, e_last_hit=e_last_hit, prev_a_hp=hp_a, prev_e_hp=hp_e,
             dead_a=state.dead_a | newly_dead_a, dead_e=state.dead_e | newly_dead_e, t=t)
-        return new_state, reward, done, {"battle_won": won, "episode_limit": at_limit}
+        info = {"battle_won": won, "episode_limit": at_limit}
+        if record:
+            # what the reference's renderer draws from the engine's unit
+            # orders (JAX :907-942), from this step's decoded actions: each
+            # unit's target (allies 0..Na-1, enemies Na + slot, -1 none), its
+            # facing (movement direction while moving, else toward its
+            # target) and whether it has one, its cooldown over its weapon's
+            a_target = torch.where(
+                is_agent_attack & e_alive.gather(1, atk_slot), Na + atk_slot,
+                torch.where(is_agent_heal & a_alive.gather(1, heal_slot), heal_slot, -1))
+            a_moved, e_moved = _norm(a_disp) > 1e-6, _norm(e_disp) > 1e-6
+            a_face = torch.where(a_moved, torch.atan2(a_disp[..., 1], a_disp[..., 0]),
+                                 torch.atan2(delta[..., 1], delta[..., 0]))
+            e_face = torch.where(e_moved, torch.atan2(e_disp[..., 1], e_disp[..., 0]),
+                                 torch.atan2(e_delta[..., 1], e_delta[..., 0]))
+            cdf_a = self.cooldown_frames[state.a_type].clamp(min=1.0)
+            cdf_e = self.cooldown_frames[state.e_type].clamp(min=1.0)
+            info["render"] = {
+                "target": torch.cat([a_target, torch.where(e_engage, e_target, -1)], 1),
+                "facing": torch.cat([a_face, e_face], 1),
+                "facing_valid": torch.cat([a_moved | is_agent_attack | is_agent_heal,
+                                           e_moved | e_engage], 1),
+                "cd_ratio": torch.cat([a_cd / cdf_a, e_cd / cdf_e], 1),
+            }
+        return new_state, reward, done, info
+
+    # ------------------------------------------------------------------
+    def heuristic_actions(self, state: CombatState,
+                          avail: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The scripted ally policy (``heuristic_ai``; JAX
+        ``refil_tpu/envs/combat/env.py:946-1042``): attackers target the
+        nearest living enemy; Medivacs heal the nearest damaged, living,
+        non-Medivac ally. ``heuristic_rest`` picks the emit mode:
+
+        * False (the reference default): the raw attack or heal at the
+          target whether or not it is available (the step chases an
+          out-of-range target); an agent with no target, or dead, no-ops;
+        * True: in range, the attack or heal; out of range, a move toward
+          the target; no target, stop; dead, no-op; then the first available
+          of [that, move toward the target, N, S, E, W, stop, no-op], by
+          ``avail`` (B, Na, A) (default: ``get_avail_actions``).
+
+        Returns (B, Na) int64 actions. Ties between equal distances go to the
+        first slot, as ``jnp.argmin``'s do; nothing here waits for the device,
+        so a captured block can hold it."""
+        a_alive = (state.a_health > 0) & state.a_active
+        e_alive = (state.e_health > 0) & state.e_active
+        is_med = self.is_medivac_t[state.a_type]
+
+        d_ae = _norm(state.a_pos[:, :, None] - state.e_pos[:, None, :])
+        d_ae = torch.where(e_alive[:, None, :], d_ae, _FAR)
+        tgt_e, tgt_e_dist = d_ae.argmin(2), d_ae.amin(2)
+        attack_act = 6 + state.e_tags.gather(1, tgt_e)
+
+        d_aa = _norm(state.a_pos[:, :, None] - state.a_pos[:, None, :])
+        damaged = a_alive & (state.a_health < self.health_max[state.a_type]) & ~is_med
+        d_heal = torch.where(damaged[:, None, :], d_aa, _FAR)
+        tgt_a, tgt_a_dist = d_heal.argmin(2), d_heal.amin(2)
+        heal_act = 6 + state.a_tags.gather(1, tgt_a)  # ally tags lie in the heal range
+
+        want = torch.where(is_med, heal_act, attack_act)
+        has_target = torch.where(is_med, tgt_a_dist < _FAR, tgt_e_dist < _FAR)
+        tgt_pos = torch.where(is_med[..., None], _take(state.a_pos, tgt_a),
+                              _take(state.e_pos, tgt_e))
+        delta = tgt_pos - state.a_pos
+        ew = torch.where(delta[..., 0] > 0, 4, 5)  # east / west
+        ns = torch.where(delta[..., 1] > 0, 2, 3)  # north / south
+        move_act = torch.where(delta[..., 0].abs() > delta[..., 1].abs(), ew, ns)
+
+        if not self.heuristic_rest:
+            return torch.where(has_target & a_alive, want, 0)
+
+        in_range = torch.where(is_med, tgt_a_dist, tgt_e_dist) <= self.shoot_range
+        act = torch.where(in_range, want, move_act)
+        act = torch.where(has_target, act, 1)
+        act = torch.where(a_alive, act, 0)
+        if avail is None:
+            avail = self.get_avail_actions(state)
+        # stop (alive) or no-op (dead) is always available: the chain ends
+        cands = torch.stack([act, move_act] + [torch.full_like(act, a)
+                                               for a in (2, 3, 4, 5, 1, 0)], -1)
+        first = avail.gather(-1, cands).to(torch.uint8).argmax(-1, keepdim=True)
+        return cands.gather(-1, first)[..., 0]
+
+    def render_state(self, state: CombatState) -> Dict[str, torch.Tensor]:
+        """One step's snapshot for ``render.py`` (JAX ``:1044-1061``): every
+        unit's position, health, shield and their maxima, type, whether its
+        slot is active and whether it is an ally; (B, Na + Ne, ...)."""
+        B = state.t.shape[0]
+        N = self.max_na + self.max_ne
+        types = torch.cat([state.a_type, state.e_type], 1)
+        return {
+            "pos": torch.cat([state.a_pos, state.e_pos], 1),
+            "health": torch.cat([state.a_health, state.e_health], 1),
+            "shield": torch.cat([state.a_shield, state.e_shield], 1),
+            "health_max": self.health_max[types],
+            "shield_max": self.shield_max[types],
+            "type": types,
+            "active": torch.cat([state.a_active, state.e_active], 1),
+            "is_ally": (torch.arange(N, device=types.device) < self.max_na).expand(B, N),
+        }
 
     # ------------------------------------------------------------------
     def observe(self, state: CombatState) -> Dict[str, torch.Tensor]:

@@ -241,12 +241,20 @@ class FlatBattle:
         ent = torch.where(is_medivac, 6 + self.core.n_tags_e + tgt, 6 + tgt)
         return torch.where(actions >= 6, ent, actions)
 
+    def render_state(self, state: FlatState) -> Dict[str, torch.Tensor]:
+        return self.core.render_state(state.core)
+
+    @property
+    def map_size(self) -> float:
+        return self.core.map_size
+
     def step(self, state: FlatState, actions: torch.Tensor,
-             generator: Optional[torch.Generator] = None, draws=None):
-        """(state, obs, reward (B,), done (B,), info). Draws nothing."""
+             generator: Optional[torch.Generator] = None, draws=None, record: bool = False):
+        """(state, obs, reward (B,), done (B,), info). Draws nothing; with
+        ``record``, the core's ``info["render"]``."""
         actions = actions.long()
         core, reward, done, info = self.core.step_state(
-            state.core, self._to_entity_actions(actions, state.core))
+            state.core, self._to_entity_actions(actions, state.core), record)
         a_alive = (state.core.a_health > 0) & state.core.a_active
         last = F.one_hot(actions, self.n_actions).float() * a_alive[..., None]
         new_state = FlatState(core=core, last_action=last)

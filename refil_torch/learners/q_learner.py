@@ -27,6 +27,7 @@ import torch
 
 from ..controllers.mac import compute_dtype
 from ..modules.mixers import MIXER_REGISTRY, FlexQMixer, LinearFlexQMixer, QMixer, VDNMixer
+from ..ops.masks import draw_imagine_groups
 from ..utils.rl_utils import build_td_lambda_targets
 
 NEG = -9999999.0  # Q of an unavailable action in the double-Q argmax
@@ -111,13 +112,26 @@ class QLearner:
         return names
 
     # ------------------------------------------------------------------
-    def _loss(self, batch: Dict[str, torch.Tensor], imagine_draws=None):
+    @staticmethod
+    def td_mask(filled: torch.Tensor, terminated: torch.Tensor) -> torch.Tensor:
+        """(B, T, 1) float: the steps the TD loss counts, filled and not
+        after the episode's termination; ``terminated`` is the batch's
+        ``terminated[:, :-1]`` as float."""
+        mask = filled.float()[:, :-1].clone()
+        mask[:, 1:] = mask[:, 1:] * (1.0 - terminated[:, :-1])
+        return mask
+
+    def _loss(self, batch: Dict[str, torch.Tensor], imagine_draws=None,
+              mask_elems: Optional[torch.Tensor] = None):
+        """The loss and metrics of one update. ``mask_elems`` (a 0-d tensor)
+        is the global batch's mask count where ``batch`` is one rank's slice
+        of it: the loss and every metric are then this slice's sums over the
+        global denominators, which the ranks' all_reduce adds up."""
         args, mac = self.args, self.mac
         rewards = batch["reward"][:, :-1]
         actions = batch["actions"][:, :-1]
         terminated = batch["terminated"][:, :-1].float()
-        mask = batch["filled"].float()[:, :-1].clone()
-        mask[:, 1:] = mask[:, 1:] * (1.0 - terminated[:, :-1])
+        mask = self.td_mask(batch["filled"], terminated)
         avail = batch["avail_actions"]
 
         metrics = {}
@@ -172,7 +186,8 @@ class QLearner:
             targets = (rewards + args.gamma * (1.0 - terminated) * target_tot[:, 1:]).detach()
         td_error = chosen_tot - targets
         masked_td = td_error * mask
-        mask_elems = mask.sum()
+        if mask_elems is None:
+            mask_elems = mask.sum()
         loss = (masked_td ** 2).sum() / mask_elems
         metrics["loss_td"] = loss
         if self.is_imagine:
@@ -185,12 +200,27 @@ class QLearner:
         metrics["target_mean"] = (targets * mask).sum() / (mask_elems * self.n_agents)
         return loss, metrics
 
-    def train_step(self, batch, imagine_draws=None) -> Dict[str, torch.Tensor]:
-        """One update; returns its metrics as 0-d tensors (no host sync)."""
-        loss, metrics = self._loss(batch, imagine_draws)
+    def train_step(self, batch, imagine_draws=None, mask_elems=None,
+                   reduce=None) -> Dict[str, torch.Tensor]:
+        """One update; returns its metrics as 0-d tensors (no host sync).
+        ``reduce`` (``MeshContext.all_reduce_``) sums, in place over the
+        ranks, one flat float32 bucket of every gradient and the metrics,
+        after the backward and before the clip, so ``grad_norm``, the clip
+        and RMSprop see the global gradient."""
+        loss, metrics = self._loss(batch, imagine_draws, mask_elems)
         self.optimiser.zero_grad(set_to_none=False)
         loss.backward()
         grads = [p.grad for p in self.params]
+        if reduce is not None:
+            names = list(metrics)
+            bucket = torch.cat([g.reshape(-1) for g in grads]
+                               + [torch.stack([metrics[k].detach().float() for k in names])])
+            reduce(bucket)
+            off = 0
+            for g in grads:
+                g.copy_(bucket[off:off + g.numel()].view_as(g))
+                off += g.numel()
+            metrics = dict(zip(names, bucket[off:]))
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         metrics["grad_norm"] = norm  # pre-clip
         clip = float(self.args.grad_norm_clip)
@@ -201,25 +231,44 @@ class QLearner:
         self.optimiser.step()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def updates(self, batches, imagine_draws: Optional[Sequence] = None
+    def updates(self, batches, imagine_draws: Optional[Sequence] = None, mesh=None
                 ) -> Dict[str, torch.Tensor]:
         """The ``training_iters`` updates in sequence on ``batches`` stacked on
         a leading iteration axis, with no host sync (``_train_iters_impl`` of
         the JAX learner). Returns the last update's metrics.
-        ``imagine_draws[i]`` = (group_probs, groupA) for update i (tests)."""
+        ``imagine_draws[i]`` = (group_probs, groupA) for update i (tests).
+
+        With ``mesh`` (a ``parallel.mesh.MeshContext``), ``batches`` is the
+        global sample, alike on every rank: each update trains on this rank's
+        slice with the global mask count, REFIL's imagined groups drawn at the
+        global shape and sliced, and the mesh's all_reduce in ``train_step``."""
         n_iters = next(iter(batches.values())).shape[0]
         metrics = {}
         for i in range(n_iters):
             batch = {k: v[i] for k, v in batches.items()}
-            metrics = self.train_step(batch, None if imagine_draws is None else imagine_draws[i])
+            draws = None if imagine_draws is None else imagine_draws[i]
+            if mesh is None:
+                metrics = self.train_step(batch, draws)
+                continue
+            if draws is None and self.is_imagine and not getattr(
+                    self.args, "train_gt_factors", False):
+                entity_mask = batch["entity_mask"]
+                draws = draw_imagine_groups(entity_mask.shape[0], entity_mask.shape[-1],
+                                            self.generator, entity_mask.device)
+            metrics = self.train_step(
+                mesh.shard(batch), None if draws is None else mesh.shard(draws),
+                mask_elems=self.td_mask(batch["filled"],
+                                        batch["terminated"][:, :-1].float()).sum(),
+                reduce=mesh.all_reduce_)
         return metrics
 
     def train_iters(self, batches, t_env: int, episode_num: int,
-                    imagine_draws: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+                    imagine_draws: Optional[Sequence] = None, mesh=None
+                    ) -> Dict[str, torch.Tensor]:
         """The classic loop's training: ``updates`` on ``batches``
         (``ReplayBuffer.sample_many``), then the target sync on its host
         episode cadence. Returns the last update's metrics."""
-        metrics = self.updates(batches, imagine_draws)
+        metrics = self.updates(batches, imagine_draws, mesh)
         self._maybe_update_targets(episode_num)
         return metrics
 

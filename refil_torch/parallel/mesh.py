@@ -1,0 +1,198 @@
+"""Multi-process data parallelism, the counterpart of
+``refil_tpu/parallel/mesh.py``.
+
+The JAX package runs one SPMD program over a device mesh, with the env batch
+and the replay-sample batch sharded over its ``data`` axis. Here each
+process drives one device (``torch.distributed``: NCCL on CUDA cards, gloo
+on the CPU), and the world of processes is the data axis:
+
+* every random draw is made at the global shape on every rank, from
+  generators seeded alike, and each rank keeps its slice (``shard``), which
+  is what JAX's SPMD program does with one key;
+* each rank rolls out its ``batch_size_run / n`` envs; one ``all_gather`` a
+  block (``gather_batch``) puts the whole episode batch, and its stats, on
+  every rank, so the replay ring is replicated and every rank samples the
+  same global batch;
+* each rank trains on its slice of that sample, with the loss and the
+  metrics over the global mask count, and one ``all_reduce`` an update
+  (``all_reduce_``) sums the gradients and the metric sums, so the clip and
+  RMSprop see the global gradient and the parameters stay equal on every
+  rank.
+
+A replicated ring holds on each rank what one process's ring holds (the
+JAX package shards it, memory / n). Rank 0 alone writes logs, TensorBoard
+and checkpoints.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# how long a collective, or the rendezvous, waits for the other ranks
+TIMEOUT = datetime.timedelta(minutes=10)
+# the flat all_gather; newer releases renamed all_gather_into_tensor
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def maybe_init_distributed(config: Dict[str, Any]) -> bool:
+    """Joins the process group when ``distributed`` is set; returns True
+    when this call created it (the caller destroys it at the end).
+
+    ``coordinator_address`` (host:port of rank 0), ``num_processes`` and
+    ``process_id`` give the rendezvous; where they are null, torchrun's
+    ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` give it.
+    The backend is NCCL when the run uses the card (``use_cuda``), gloo on
+    the CPU, and each rank uses card ``rank % device_count``. Must run before
+    the first device access."""
+    if not config.get("distributed", False) or dist.is_initialized():
+        return False
+    addr = config.get("coordinator_address")
+    world = config.get("num_processes")
+    rank = config.get("process_id")
+    world = int(world if world is not None else _env_int("WORLD_SIZE", "num_processes"))
+    rank = int(rank if rank is not None else _env_int("RANK", "process_id"))
+    if not 0 <= rank < world:
+        raise ValueError(f"process_id {rank} is outside a world of {world} processes")
+    use_cuda = bool(config.get("use_cuda", True))
+    if use_cuda:
+        if not torch.cuda.is_available():
+            raise RuntimeError("distributed=True with use_cuda=True but no CUDA device is "
+                               "available; pass use_cuda=False to run over gloo on the CPU")
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    if addr is None and not os.environ.get("MASTER_ADDR"):
+        raise ValueError("distributed=True needs coordinator_address (host:port of rank 0) "
+                         "or torchrun's MASTER_ADDR and MASTER_PORT")
+    dist.init_process_group("nccl" if use_cuda else "gloo",
+                            init_method="env://" if addr is None else f"tcp://{addr}",
+                            world_size=world, rank=rank, timeout=TIMEOUT)
+    return True
+
+
+def _env_int(name: str, key: str) -> int:
+    value = os.environ.get(name)
+    if value is None:
+        raise ValueError(f"distributed=True needs {key} or torchrun's {name}")
+    return int(value)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_rebuild(v, it) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(v, it) for v in tree)
+    return next(it)
+
+
+class MeshContext:
+    """The data axis over the process group's ranks: ``n_data`` (the world
+    size), ``rank`` and the collectives the loops use. ``launches`` counts
+    each collective where it is launched, beside the kernel wrappers'
+    counts (``core/pipeline.py:launch_counts``)."""
+
+    def __init__(self, device: torch.device):
+        if not dist.is_initialized():
+            raise ValueError("a MeshContext needs a process group (distributed=True)")
+        self.n_data = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.device = torch.device(device)
+        self.launches = {"all_gather": 0, "all_reduce": 0}
+        # one eager collective: it checks that every rank is there and, on
+        # NCCL, creates the communicator before any CUDA graph captures one
+        probe = torch.ones(1, device=self.device)
+        dist.all_reduce(probe)
+        if int(probe.item()) != self.n_data:
+            raise RuntimeError(f"the process group's first all_reduce gave {probe.item()}, "
+                               f"not its {self.n_data} ranks")
+
+    def check_divisible(self, size: int, what: str = "batch size") -> None:
+        if int(size) % self.n_data != 0:
+            raise ValueError(f"{what} {size} must divide over {self.n_data} data shards "
+                             f"(processes)")
+
+    def shard(self, tree):
+        """This rank's slice of the leading (global batch) axis of every
+        tensor in ``tree`` (dicts, tuples and named tuples kept); views."""
+        def cut(x):
+            b = x.shape[0] // self.n_data
+            return x[self.rank * b:(self.rank + 1) * b]
+
+        return _rebuild(tree, iter([cut(x) for x in _leaves(tree)]))
+
+    def gather_batch(self, tree):
+        """Every rank's ``tree`` laid end to end on the leading axis, rank by
+        rank: one ``all_gather`` of every tensor's bytes in one flat buffer."""
+        leaves = _leaves(tree)
+        parts = [x.contiguous().reshape(-1).view(torch.uint8) for x in leaves]
+        flat = torch.cat(parts)
+        out = torch.empty(self.n_data * flat.numel(), dtype=torch.uint8, device=flat.device)
+        self.launches["all_gather"] += 1
+        _all_gather_single(out, flat)
+        out = out.view(self.n_data, flat.numel())
+        gathered, off = [], 0
+        for x, p in zip(leaves, parts):
+            n = p.numel()
+            piece = out[:, off:off + n].contiguous().view(x.dtype)
+            gathered.append(piece.reshape((self.n_data * x.shape[0],) + tuple(x.shape[1:])))
+            off += n
+        return _rebuild(tree, iter(gathered))
+
+    def all_reduce_(self, flat: torch.Tensor) -> torch.Tensor:
+        """Sums ``flat`` over the ranks, in place."""
+        self.launches["all_reduce"] += 1
+        dist.all_reduce(flat)
+        return flat
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (one all_reduce MAX): every rank
+        takes the same branch at a host boundary."""
+        t = torch.tensor([int(bool(flag))], device=self.device)
+        self.launches["all_reduce"] += 1
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+def maybe_make_mesh(args, device: torch.device, logger=None) -> Optional[MeshContext]:
+    """The data mesh of a run (``run.py``): a ``MeshContext`` over the
+    process group when there is one (``distributed=True``), else None.
+
+    ``mesh_shape`` (e.g. ``{data: 2}``) must equal the world size, else
+    ValueError; without a process group the world is this one process. The
+    JAX package's one process sees several devices and may fall back to one
+    of them when the sizes do not divide; here a world of processes cannot,
+    so ``batch_size_run``, ``batch_size`` and ``buffer_size`` must divide
+    over the ranks, else ValueError."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = getattr(args, "mesh_shape", None)
+    if shape:
+        n = int(np.prod([int(v) for v in dict(shape).values()]))
+        if n != world:
+            raise ValueError(f"mesh_shape {dict(shape)} needs {n} processes, this run has "
+                             f"{world} (distributed=True with num_processes={n}, or "
+                             f"torchrun --nproc_per_node={n})")
+    if not dist.is_initialized():
+        return None
+    mesh = MeshContext(device)
+    for key in ("batch_size_run", "batch_size", "buffer_size"):
+        mesh.check_divisible(int(getattr(args, key)), key)
+    if logger is not None:
+        logger.info("data mesh: rank %d of %d processes (%s)", mesh.rank, mesh.n_data,
+                    dist.get_backend())
+    return mesh

@@ -27,7 +27,9 @@ replay ring, so a resumed fused run repeats the unbroken run exactly. A
 restore copies into the live tensors in place, since a captured CUDA graph
 replays only on the tensors it was captured over. ``checkpoint_path`` loads
 the newest step (or the one nearest ``load_step``) and, under ``evaluate``,
-runs only ``evaluate_sequential``.
+runs only ``evaluate_sequential``, which with ``video_path`` or
+``save_replay`` also records its first rollout and writes the eval video and
+``replays/<token>.npz`` (``envs/combat/render.py``).
 
 The scheme comes from ``env_args.entity_scheme``: the entity envs (Group
 Matching, ``entity_battle``) feed ``entity_mac`` and the entity mixers; the
@@ -35,17 +37,26 @@ flat env (``flat_battle``, ``sc2``) feeds ``basic_mac`` and ``qmix`` over its
 global state, with its per-entity obs and state masks in ``args.obs_masks``
 and ``args.state_masks``.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-replays and eval videos, the mesh, multi-process runs and the scripted ally
-policy.
+``heuristic_ai`` (config or ``env_args``) acts with the combat env's
+scripted ally policy (``VectorRunner``).
 
-Device: ``use_cuda`` (default True) runs on the CUDA card and raises where
-there is none; ``use_cuda=False`` runs on the CPU.
+Multi-process data parallelism (``parallel/mesh.py``): ``distributed=True``
+joins a process group before any device access, one process per device;
+``mesh_shape`` must equal the world size. Both loops then shard each
+training rollout over the ranks and all-reduce each update's gradients;
+test rollouts and eval run whole on every rank; rank 0 alone writes logs,
+TensorBoard and checkpoints, and the ranks agree on a preemption at each
+dispatch or block boundary.
+
+Device: ``use_cuda`` (default True) runs on the CUDA card (a rank's card
+under ``distributed``) and raises where there is none; ``use_cuda=False``
+runs on the CPU.
 """
 from __future__ import annotations
 
 import datetime
 import json
+import logging
 import os
 import pprint
 import signal
@@ -55,6 +66,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import args_sanity_check, config_to_args
 from .controllers.mac import MAC_REGISTRY
@@ -63,19 +75,11 @@ from .core.pipeline import FusedPipeline
 from .envs import ENV_REGISTRY
 from .envs.combat.scenarios import SCENARIO_REGISTRY
 from .learners.q_learner import QLearner
+from .parallel.mesh import maybe_init_distributed, maybe_make_mesh
 from .runners.vector_runner import VectorRunner
 from .utils.logging import Logger, get_logger
 from .utils.profiling import PhaseTimer
 from .utils.timehelper import time_left, time_str
-
-# config keys whose feature is not ported yet -> the ROADMAP item that holds it
-_UNPORTED = {
-    "save_replay": "replays (ROADMAP queue A item 7: the env has no render_state)",
-    "video_path": "eval videos (ROADMAP queue A item 7: the env has no render_state)",
-    "mesh_shape": "the device mesh (ROADMAP queue A item 11)",
-    "distributed": "multi-process runs (ROADMAP queue A item 11)",
-    "heuristic_ai": "the scripted ally policy (heuristic_actions, ROADMAP queue A item 7)",
-}
 
 STATE_FILE = "state.pt"
 
@@ -112,29 +116,22 @@ class PreemptionGuard:
 
 
 def resolve_device(args) -> torch.device:
-    """The card when ``use_cuda`` (the default), else the CPU. Never falls
-    back: ``use_cuda`` without a CUDA device raises."""
+    """The card when ``use_cuda`` (the default), else the CPU; in a process
+    group, card ``rank % device_count``. Never falls back: ``use_cuda``
+    without a CUDA device raises."""
     if bool(getattr(args, "use_cuda", True)):
         if not torch.cuda.is_available():
             raise RuntimeError("use_cuda=True but no CUDA device is available; pass "
                                "use_cuda=False to run on the CPU")
+        if dist.is_initialized():
+            return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
-def refuse_unported(args) -> None:
-    for key, what in _UNPORTED.items():
-        if getattr(args, key, None):
-            raise NotImplementedError(f"{key}={getattr(args, key)!r}: {what} is not ported "
-                                      "to refil_torch yet")
-    # the reference ships the scripted-ally knobs under env_args as well
-    for key in ("heuristic_ai", "heuristic_rest"):
-        if args.env_args.get(key):
-            raise NotImplementedError(f"env_args.{key}=True: the scripted ally policy "
-                                      "(heuristic_actions, ROADMAP queue A item 7) is not "
-                                      "ported to refil_torch yet")
-    if args.env not in ENV_REGISTRY:
-        raise ValueError(f"env {args.env!r} not recognised; known: {sorted(ENV_REGISTRY)}")
+def _is_main() -> bool:
+    """Rank 0 of the process group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def build_env(args, device: torch.device):
@@ -148,25 +145,40 @@ def build_env(args, device: torch.device):
 
 
 def run(config: Dict[str, Any]) -> Dict[str, Any]:
-    """Runs one experiment; returns ``run_sequential``'s summary."""
+    """Runs one experiment; returns ``run_sequential``'s summary. Under
+    ``distributed``, joins the process group first (before any device
+    access) and leaves it at the end."""
     config = args_sanity_check(config)
-    args = config_to_args(config)
-    refuse_unported(args)
-    device = resolve_device(args)
-    logger = Logger(get_logger())
-    logger.console_logger.info("Experiment Parameters:\n\n%s\n",
-                               pprint.pformat(config, indent=4, width=1))
-    args.unique_token = "{}__{}".format(
-        args.name, datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S-%f"))
-    if args.use_tensorboard:
-        logger.setup_tb(join(args.local_results_path, args.tb_dirname, args.unique_token))
-    logger.setup_jsonl(join(args.local_results_path, "metrics", args.unique_token + ".jsonl"))
+    created = maybe_init_distributed(config)
     try:
-        summary = run_sequential(args, logger, device)
+        args = config_to_args(config)
+        if args.env not in ENV_REGISTRY:
+            raise ValueError(f"env {args.env!r} not recognised; known: {sorted(ENV_REGISTRY)}")
+        device = resolve_device(args)
+        console = get_logger()
+        if not _is_main():  # the other ranks say only what goes wrong
+            console = console.getChild(f"rank{dist.get_rank()}")
+            console.setLevel(logging.WARNING)
+        logger = Logger(console)
+        logger.console_logger.info("Experiment Parameters:\n\n%s\n",
+                                   pprint.pformat(config, indent=4, width=1))
+        args.unique_token = "{}__{}".format(
+            args.name, datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S-%f"))
+        if _is_main():
+            if args.use_tensorboard:
+                logger.setup_tb(join(args.local_results_path, args.tb_dirname,
+                                     args.unique_token))
+            logger.setup_jsonl(join(args.local_results_path, "metrics",
+                                    args.unique_token + ".jsonl"))
+        try:
+            summary = run_sequential(args, logger, device)
+        finally:
+            logger.close()
+        logger.console_logger.info("Finished")
+        return summary
     finally:
-        logger.close()
-    logger.console_logger.info("Finished")
-    return summary
+        if created:
+            dist.destroy_process_group()
 
 
 def _generators(seed: int, device: torch.device) -> Dict[str, torch.Generator]:
@@ -334,6 +346,22 @@ def _model_path(args, t_env: int) -> str:
     return join(args.local_results_path, "models", args.unique_token, str(t_env))
 
 
+def _save_on_main(mesh, path: str, learner, **kwargs) -> Optional[Dict[str, Any]]:
+    """``_save_checkpoint`` on rank 0 (or the only process), then a barrier,
+    so no rank runs on before the checkpoint is on disk. None on the other
+    ranks."""
+    info = _save_checkpoint(path, learner, **kwargs) if _is_main() else None
+    if mesh is not None:
+        mesh.barrier()
+    return info
+
+
+def _preempt_due(guard, mesh) -> bool:
+    """The SIGTERM flag, agreed over the ranks: every rank stops at the
+    same boundary."""
+    return guard.requested if mesh is None else mesh.any(guard.requested)
+
+
 def _save_due(args, t_env: int, model_save_time: int) -> bool:
     return bool(args.save_model) and (t_env - model_save_time >= args.save_model_interval
                                       or model_save_time == 0 or t_env > args.t_max)
@@ -342,35 +370,63 @@ def _save_due(args, t_env: int, model_save_time: int) -> bool:
 # ------------------------------------------------------------------ eval
 def evaluate_sequential(args, runner, logger: Logger, generator: torch.Generator
                         ) -> Dict[str, Any]:
-    """Eval-only run (``refil_tpu/run.py:evaluate_sequential`` without the
-    video): one greedy rollout of all of ``test_nepisode`` for each scenario
-    under ``eval_all_scen`` (every env on that scenario), else one over
-    randomly drawn scenarios; the stats each logged go to ``eval_path`` as
-    JSON, keyed by scenario name under ``eval_all_scen``. Returns them and
-    each rollout's seconds."""
+    """Eval-only run (``refil_tpu/run.py:evaluate_sequential``): one greedy
+    rollout of all of ``test_nepisode`` for each scenario under
+    ``eval_all_scen`` (every env on that scenario), else one over randomly
+    drawn scenarios; the stats each logged go to ``eval_path`` as JSON, keyed
+    by scenario name under ``eval_all_scen``. With ``video_path`` or
+    ``save_replay``, on an env that renders, the first rollout records:
+    env 0's episode becomes the video (an animated GIF where imageio has no
+    FFMPEG) and the whole recording ``replays/<token>.npz``. Only rank 0
+    writes files. Returns the stats, each rollout's seconds, and the video
+    and replay paths (None where not written)."""
     res: Dict[str, Any] = {}
     n_scen = len(runner.env.scenario_names) if args.eval_all_scen else 1
     n_test_eps = max(1, args.test_nepisode // runner.batch_size) * runner.batch_size
+    want_record = bool(args.video_path or args.save_replay) and hasattr(runner.env,
+                                                                         "render_state")
     seconds = []
     for i in range(n_scen):
         # only the stats this scenario's rollout logged
         before = {k: len(v) for k, v in logger.stats.items()}
         t0 = time.perf_counter()
         runner.run(test_mode=True, test_scen=True, index=i if args.eval_all_scen else None,
-                   batch_size=n_test_eps, generator=generator)
+                   batch_size=n_test_eps, generator=generator, record=want_record and i == 0)
         seconds.append(time.perf_counter() - t0)
         curr = {k: v[-1][1] for k, v in logger.stats.items() if len(v) > before.get(k, 0)}
         if args.eval_all_scen:
             res[runner.env.scenario_names[i]] = curr
         else:
             res.update(curr)
-    if args.eval_path:
+    video = replay = None
+    if want_record and _is_main():
+        from .envs.combat import render as crender
+
+        if args.video_path:
+            path = args.video_path if args.video_path.endswith(".mp4") else (
+                args.video_path + ".mp4")
+            os.makedirs(dirname(abspath(path)), exist_ok=True)
+            # the geometry-defined maps' terrain is drawn under the units
+            core = getattr(runner.env, "core", runner.env)
+            geo = None if core.trivial_pathing else (core.pathing_grid.cpu().numpy(),
+                                                     core.terrain_height.cpu().numpy())
+            frames = crender.frames_for_env(runner.last_recording, 0, runner.env.map_size,
+                                            geometry=geo)
+            video = crender.save_video(path, frames, fps=args.fps)
+            logger.console_logger.info("Saved eval video to %s", video)
+        if args.save_replay:
+            replay = join(args.local_results_path, "replays", args.unique_token + ".npz")
+            os.makedirs(dirname(abspath(replay)), exist_ok=True)
+            crender.save_replay(replay, runner.last_recording)
+            logger.console_logger.info("Saved replay to %s", replay)
+    if args.eval_path and _is_main():
         path = args.eval_path if args.eval_path.endswith(".json") else args.eval_path + ".json"
         os.makedirs(dirname(abspath(path)), exist_ok=True)
         with open(path, "w") as f:
             json.dump(res, f)
     logger.print_stats_summary()
-    return {"eval": res, "eval_seconds": seconds, "eval_episodes": n_test_eps}
+    return {"eval": res, "eval_seconds": seconds, "eval_episodes": n_test_eps,
+            "video": video, "replay": replay}
 
 
 # ------------------------------------------------------------------ training
@@ -387,6 +443,7 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
     the seconds and env steps of its graph replays alone)."""
     runner, learner, gens = build_training(args, logger, device)
     log = logger.console_logger
+    mesh = runner.mesh = maybe_make_mesh(args, device, log)
     pipe_payload, restored = None, None
     if args.checkpoint_path:
         found = find_checkpoint(args.checkpoint_path, int(args.load_step))
@@ -402,7 +459,7 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
                     "bytes": os.path.getsize(join(model_path, STATE_FILE)),
                     "seconds": time.perf_counter() - t0}
         runner.t_env = step
-        if args.evaluate:
+        if args.evaluate or args.save_replay:
             out = evaluate_sequential(args, runner, logger, gens["test"])
             return {**out, "loop": "evaluate", "restored": restored, "t_env": runner.t_env,
                     "episode_limit": runner.episode_limit, "device": str(device)}
@@ -417,9 +474,9 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
     try:
         if use_fused:
             summary = _run_fused_loop(args, runner, learner, logger, device, gens, guard,
-                                      pipe_payload)
+                                      pipe_payload, mesh)
         else:
-            summary = _run_classic_loop(args, runner, learner, logger, device, gens, guard)
+            summary = _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh)
     finally:
         guard.restore()
     log.info("Finished Training")
@@ -434,7 +491,7 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
         "params_max_abs_change": max(float((p.detach() - p0).abs().max())
                                      for p, p0 in zip(learner.params, initial_params)),
         "restored": restored,
-        "preempted": guard.requested,
+        "world_size": 1 if mesh is None else mesh.n_data,
         "device": str(device),
     }
 
@@ -448,9 +505,13 @@ def _log_due(args, runner, logger, state) -> None:
         state["last_log_T"] = runner.t_env
 
 
-def _run_classic_loop(args, runner, learner, logger, device, gens, guard) -> Dict[str, Any]:
+def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=None
+                      ) -> Dict[str, Any]:
     """The classic loop (``refil_tpu/run.py:411-503``). Its checkpoints hold
-    the learner only, as the JAX package's do: a resume refills the ring."""
+    the learner only, as the JAX package's do: a resume refills the ring.
+    Under a data mesh each training rollout is sharded and gathered
+    (``VectorRunner.run``), the ring and its host sampler are alike on every
+    rank, and each update trains on this rank's slice of the sample."""
     log = logger.console_logger
     buffer_device = torch.device("cpu") if getattr(args, "buffer_cpu_only", False) else device
     buffer = None
@@ -464,6 +525,7 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard) -> Dic
     last_metrics: Dict[str, float] = {}
     saves = []
 
+    preempted = False
     while runner.t_env <= args.t_max:
         t_block = time.perf_counter()
         t_before = runner.t_env
@@ -480,7 +542,8 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard) -> Dic
         if buffer.can_sample(args.batch_size):
             with timer.phase("train"):
                 samples = buffer.sample_many(args.training_iters, args.batch_size, device=device)
-                metrics = learner.train_iters(samples, runner.t_env, cadence["episode"])
+                metrics = learner.train_iters(samples, runner.t_env, cadence["episode"],
+                                              mesh=mesh)
             counts["updates"] += 1
             counts["iterations"] += args.training_iters
         _sync(device)
@@ -519,32 +582,37 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard) -> Dic
 
         if _save_due(args, runner.t_env, model_save_time):
             model_save_time = runner.t_env
-            saves.append(_save_checkpoint(_model_path(args, runner.t_env), learner))
-            log.info("Saved models to %s (%d bytes, %.3f s)", saves[-1]["path"],
-                     saves[-1]["bytes"], saves[-1]["seconds"])
+            info = _save_on_main(mesh, _model_path(args, runner.t_env), learner)
+            if info is not None:
+                saves.append(info)
+                log.info("Saved models to %s (%d bytes, %.3f s)", info["path"], info["bytes"],
+                         info["seconds"])
 
         cadence["episode"] += args.batch_size_run
         _log_due(args, runner, logger, cadence)
 
-        if guard.requested:
-            saves.append(_save_checkpoint(_model_path(args, runner.t_env), learner))
-            log.info("Preempted at t_env=%d: checkpoint written to %s", runner.t_env,
-                     saves[-1]["path"])
+        preempted = _preempt_due(guard, mesh)
+        if preempted:
+            path = _model_path(args, runner.t_env)
+            info = _save_on_main(mesh, path, learner)
+            saves += [info] if info is not None else []
+            log.info("Preempted at t_env=%d: checkpoint written to %s", runner.t_env, path)
             break
 
     return {**counts, "episodes": cadence["episode"], "train_seconds": train_seconds,
-            "train_steps": train_steps, "last_metrics": last_metrics, "saves": saves}
+            "train_steps": train_steps, "last_metrics": last_metrics, "saves": saves,
+            "preempted": preempted}
 
 
 def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
-                    pipe_payload=None) -> Dict[str, Any]:
+                    pipe_payload=None, mesh=None) -> Dict[str, Any]:
     """The fused loop (``refil_tpu/run.py:_run_fused_loop``): one dispatch
     of ``run_blocks`` between host-cadence boundaries (test, model save,
     t_max), each block accounted on the host from the stats fetched once per
     dispatch. ``pipe_payload`` (a checkpoint's) is restored into the fresh
-    pipeline state before the first block."""
+    pipeline state before the first block. ``mesh``: the pipeline's."""
     log = logger.console_logger
-    pipeline = FusedPipeline(runner, learner, args.buffer_size, args)
+    pipeline = FusedPipeline(runner, learner, args.buffer_size, args, mesh=mesh)
     ps = pipeline.init_state(gens["sample"], t_env=runner.t_env)
     warm = pipeline.warmup_blocks()
     if pipe_payload is not None:
@@ -587,11 +655,14 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
         return 1 << (int(n).bit_length() - 1)
 
     def save(include_buffer: bool) -> None:
-        saves.append(_save_checkpoint(_model_path(args, runner.t_env), learner, pstate=ps,
-                                      include_buffer=include_buffer))
-        log.info("Saved models to %s (%d bytes, %.3f s)", saves[-1]["path"], saves[-1]["bytes"],
-                 saves[-1]["seconds"])
+        info = _save_on_main(mesh, _model_path(args, runner.t_env), learner, pstate=ps,
+                             include_buffer=include_buffer)
+        if info is not None:
+            saves.append(info)
+            log.info("Saved models to %s (%d bytes, %.3f s)", info["path"], info["bytes"],
+                     info["seconds"])
 
+    preempted = False
     while runner.t_env <= args.t_max:
         n_blocks = n_blocks_to_boundary()
         train = blocks_done >= warm
@@ -656,14 +727,16 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
 
         _log_due(args, runner, logger, cadence)
 
-        if guard.requested:
+        preempted = _preempt_due(guard, mesh)
+        if preempted:
             save(bool(getattr(args, "preempt_save_buffer", True)))
             log.info("Preempted at t_env=%d: exact-resume checkpoint written to %s",
-                     runner.t_env, saves[-1]["path"])
+                     runner.t_env, _model_path(args, runner.t_env))
             break
 
     if pipeline.graphs:
         log.info("CUDA graphs: %s", {k: g.summary() for k, g in pipeline.graphs.items()})
     return {**counts, "episodes": cadence["episode"], "train_seconds": train_seconds,
             "train_steps": train_steps, "last_metrics": last_metrics, "dispatches": dispatches,
-            "graphs": {k: g.summary() for k, g in pipeline.graphs.items()}, "saves": saves}
+            "graphs": {k: g.summary() for k, g in pipeline.graphs.items()}, "saves": saves,
+            "preempted": preempted}

@@ -9,6 +9,12 @@ reference exactly:
   * ``terminated[t] = done_t and not episode_limit_t``;
   * ``actions_onehot`` is zero (not one-hot of 0) at never-written steps;
   * every plane has an episode axis of ``episode_limit + 1``.
+
+``heuristic_ai`` (in the config or in ``env_args``) acts with the env's
+scripted ally policy (``heuristic_actions``) in place of the selector, as
+the JAX runner does; the agent still steps its hidden state. A recording
+run (``record=True``) keeps each step's ``render_state`` and render extras
+for ``render.py`` in ``last_recording``.
 """
 from __future__ import annotations
 
@@ -76,24 +82,45 @@ class VectorRunner:
         self.battles_game = 0
         self.timeouts = 0
         self.log_train_stats_t = -1000000
+        # the reference ships this knob under env_args (sc2custom.yaml), so
+        # both spellings count; FlatBattle has no heuristic_actions, so on the
+        # flat env heuristic_ai runs the learner's actions, as in JAX
+        self.heuristic = (bool(getattr(args, "heuristic_ai", False))
+                          or bool(dict(getattr(args, "env_args", {})).get("heuristic_ai", False))
+                          ) and hasattr(env, "heuristic_actions")
+        self.mesh = None  # a training run's data mesh (run.py), if any
+        self.last_recording: Optional[List[Dict[str, np.ndarray]]] = None
 
     @torch.no_grad()
     def rollout(self, epsilon: Union[float, torch.Tensor], batch_size: int, test: bool = False,
                 env_draws: Optional[dict] = None, index: Optional[int] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, record: bool = False,
+                shard=None):
         """One block of ``batch_size`` episodes; ``epsilon`` a float or a 0-d
         tensor on the device; ``index`` (>= 0) fixes every env's scenario.
         ``env_draws`` = {"reset": draws, "step": [draws per step]} feeds the
         env explicit randomness (tests); otherwise ``generator`` (default:
         the runner's) draws it. Returns (batch dict (B, T+1, ...), stats dict
         of device tensors). Nothing here waits for the device, so the fused
-        pipeline's CUDA graph can capture it."""
+        pipeline's CUDA graph can capture it. ``record`` adds
+        ``stats["render"]``, a list of T per-step dicts.
+
+        ``shard`` (a ``parallel.mesh.MeshContext``): ``batch_size`` is the
+        global block; this rank steps its ``batch_size / n`` envs, every draw
+        made at the global shape and sliced, and the ranks' batches and stats
+        are then gathered, rank by rank, so every rank returns the block one
+        process stepping all of it would."""
         env, mac = self.env, self.mac
         gen = self.generator if generator is None else generator
-        B, T = batch_size, self.episode_limit
+        T = self.episode_limit
+        B = batch_size if shard is None else batch_size // shard.n_data
         dev = mac.device
-        state, obs = env.reset(B, generator=gen, test=test, index=index,
-                               draws=None if env_draws is None else env_draws["reset"])
+        reset_draws = None if env_draws is None else env_draws["reset"]
+        if shard is not None:
+            if reset_draws is None:
+                reset_draws = env.draw_reset(batch_size, gen)
+            reset_draws = shard.shard(reset_draws)
+        state, obs = env.reset(B, generator=gen, test=test, index=index, draws=reset_draws)
         obs0 = obs
         hidden = mac.init_hidden(B)
         alive = torch.ones((B,), dtype=torch.bool, device=dev)
@@ -104,13 +131,23 @@ class VectorRunner:
         final_info = {k: torch.zeros((B,), device=dev)
                       for k in getattr(env, "final_info_keys", ("solved",))}
         outs = {"actions": [], "reward": [], "terminated": [], "filled": [], "obs": []}
+        frames = []
+        step_kw = {"record": True} if record else {}
 
         for t in range(T):
             q, hidden_new = mac.forward_step(obs, last_oh, hidden)
-            actions = self.select(q, obs["avail_actions"], epsilon, test, gen)
+            if self.heuristic:
+                # the env gates the choice against avail_actions (heuristic_rest)
+                actions = env.heuristic_actions(state, obs["avail_actions"])
+            else:
+                actions = self.select(q, obs["avail_actions"], epsilon, test, gen, shard)
             step_draws = None if env_draws is None else env_draws["step"][t]
+            if shard is not None and hasattr(env, "draw_step"):
+                if step_draws is None:
+                    step_draws = env.draw_step(batch_size, gen)
+                step_draws = shard.shard(step_draws)
             n_state, n_obs, rew, done, info = env.step(state, actions, generator=gen,
-                                                       draws=step_draws)
+                                                       draws=step_draws, **step_kw)
             env_term = done & ~info["episode_limit"]
 
             state = _select(alive, n_state, state)
@@ -130,6 +167,8 @@ class VectorRunner:
             outs["terminated"].append(env_term & alive)
             outs["filled"].append(alive)
             outs["obs"].append({k: _mask_like(alive, v) for k, v in obs.items()})
+            if record:
+                frames.append({**env.render_state(state), **info["render"]})
             alive = alive & ~done
 
         def seq(xs):  # T x (B, ...) -> (B, T+1, ...) with a zero last slot
@@ -151,21 +190,26 @@ class VectorRunner:
             filled=filled,
         )
         stats = {"ep_returns": ep_ret, "ep_lengths": ep_len, "final_info": final_info}
+        if shard is not None:
+            batch, stats = shard.gather_batch((batch, stats))
+        if record:
+            stats["render"] = frames
         return batch, stats
 
-    def select(self, q, avail, epsilon, test: bool, generator):
+    def select(self, q, avail, epsilon, test: bool, generator, shard=None):
         """The actions of one step, by ``agent_output_type`` and
         ``action_selector`` (``refil_tpu/runners/vector_runner.py:115-135``):
         pi_logits -> ``pi_logits_transform`` then ``multinomial``; else the
-        configured selector over the Q-values."""
+        configured selector over the Q-values. ``shard``: the selectors'."""
         test_greedy = bool(getattr(self.args, "test_greedy", True))
         if self.output_type == "pi_logits":
             probs = pi_logits_transform(q, avail, epsilon, test, mask_before_softmax=bool(
                 getattr(self.args, "mask_before_softmax", True)))
-            return multinomial(probs, avail, test_greedy, test, generator=generator)
+            return multinomial(probs, avail, test_greedy, test, generator=generator,
+                               shard=shard)
         if self.selector == "multinomial":
-            return multinomial(q, avail, test_greedy, test, generator=generator)
-        return epsilon_greedy(q, avail, epsilon, generator=generator)
+            return multinomial(q, avail, test_greedy, test, generator=generator, shard=shard)
+        return epsilon_greedy(q, avail, epsilon, generator=generator, shard=shard)
 
     def batch_spec(self) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """(shape of one episode, dtype) of each plane ``rollout`` returns,
@@ -181,20 +225,33 @@ class VectorRunner:
 
     def run(self, test_mode: bool = False, batch_size: Optional[int] = None,
             test_scen: Optional[bool] = None, index: Optional[int] = None,
-            generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+            generator: Optional[torch.Generator] = None,
+            record: bool = False) -> Dict[str, torch.Tensor]:
         """One episode block with the scheduled epsilon (0 in test mode);
         accounts its stats and returns the episode batch. ``batch_size``
         overrides ``batch_size_run`` for this call: the fused loop runs all
         of ``test_nepisode`` as one wider rollout. ``test_scen`` (default:
         ``test_mode``) is the env's test flag, ``index`` a fixed scenario
         (eval-only runs); ``generator`` draws in place of the runner's (the
-        loops' test runs, so they leave the training stream alone)."""
+        loops' test runs, so they leave the training stream alone).
+        ``record`` keeps the block's per-step render states and extras in
+        ``last_recording``, a list of T dicts of numpy arrays (B, ...). A
+        training block under a data mesh (``self.mesh``) is sharded over the
+        ranks and gathered; a test block runs whole, alike on every rank."""
         if test_scen is None:
             test_scen = test_mode
         self.epsilon = self.schedule.eval_host(self.t_env)
         eps = 0.0 if test_mode else self.epsilon
+        extra = {}
+        if record:
+            extra["record"] = True
+        if self.mesh is not None and not test_mode:
+            extra["shard"] = self.mesh
         batch, stats = self.rollout(eps, self.batch_size if batch_size is None else batch_size,
-                                    test=bool(test_scen), index=index, generator=generator)
+                                    test=bool(test_scen), index=index, generator=generator,
+                                    **extra)
+        if record:
+            self.last_recording = [_to_host(frame) for frame in stats.pop("render")]
         stats = _to_host(stats)
         if not test_mode:
             self.t_env += int(stats["ep_lengths"].sum())

@@ -1,7 +1,8 @@
-"""refil_torch's CLI end to end on the CPU, its device rule, the features it
-still refuses (replays and eval videos, the mesh, multi-process runs, the
-scripted allies), the flat path's pieces refused on the entity scheme, and
-the rule that the port imports nothing of JAX."""
+"""refil_torch's CLI end to end on the CPU, its device rule, what it does
+with the options that were refused before they were ported (the mesh,
+multi-process runs, the scripted allies, replays and eval videos), the flat
+path's pieces refused on the entity scheme, and the rule that the port
+imports nothing of JAX."""
 import ast
 import glob
 import math
@@ -59,14 +60,41 @@ def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):
                                    "mixer=qmix", "env=flat_battle", "env=sc2",
                                    "heuristic_ai=True", "save_replay=True",
                                    ("evaluate=True", "video_path=eval.mp4")])
-def test_unported_features_raise(tmp_path, extra):
-    """Unported features raise NotImplementedError. The flat path is ported:
-    its agent, mixer and env asked for in Group Matching's entity-scheme
-    config are a scheme mismatch, refused with a ValueError."""
-    expected = ValueError if extra in FLAT_ON_ENTITY_SCHEME else NotImplementedError
-    extra = (extra,) if isinstance(extra, str) else extra
-    with pytest.raises(expected):
-        tmain.main(_cli(tmp_path, "refil_group_matching", "use_cuda=False", *extra))
+def test_unported_features_raise(tmp_path, monkeypatch, extra):
+    """Once refused, now ported, each option on Group Matching does what the
+    JAX package does with it:
+    * ``mesh_shape={'data':2}`` in one process: a ValueError (the mesh needs
+      2 processes);
+    * ``distributed=True`` with torchrun's variables for a world of one:
+      trains over gloo and leaves no process group behind;
+    * ``heuristic_ai``: trains (the env has no scripted policy);
+    * ``save_replay`` without a checkpoint, ``evaluate`` and ``video_path``
+      without one: train, writing no replay and no video (the eval branch
+      needs a checkpoint, and Group Matching renders nothing).
+    The flat path's agent, mixer and env in the entity-scheme config are a
+    scheme mismatch, refused with a ValueError."""
+    argv = _cli(tmp_path, "refil_group_matching", "use_cuda=False",
+                *((extra,) if isinstance(extra, str) else extra))
+    if extra in FLAT_ON_ENTITY_SCHEME:
+        with pytest.raises(ValueError):
+            tmain.main(argv)
+        return
+    if extra == "mesh_shape={'data':2}":
+        with pytest.raises(ValueError, match="needs 2 processes"):
+            tmain.main(argv)
+        return
+    if extra == "distributed=True":
+        from refil_torch.parallel.gate import free_port
+
+        for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(free_port())),
+                     ("WORLD_SIZE", "1"), ("RANK", "0")):
+            monkeypatch.setenv(k, v)
+    summary = tmain.main(argv)
+    assert summary["loop"] == "fused" and summary["updates"] >= 1
+    assert math.isfinite(summary["last_metrics"]["loss"])
+    assert summary["world_size"] == 1 and not torch.distributed.is_initialized()
+    assert not os.path.exists(os.path.join(tmp_path, "replays"))
+    assert not glob.glob(os.path.join(tmp_path, "**", "eval*"), recursive=True)
 
 
 FLAT_ON_ENTITY_SCHEME = ("agent=rnn", "mixer=qmix", "env=flat_battle", "env=sc2")

@@ -5,9 +5,11 @@
   ``tests/test_fused_loop.py``; the ``time_*`` phase timers are wall-clock
   and skipped). On the CPU the blocks run eagerly, so the values are equal.
 * ``use_fused_pipeline=False`` and ``buffer_cpu_only`` run the classic loop.
-* The features the port does not have yet (the mesh, multi-process runs,
-  replays) still raise.
+* The options once refused in the fused loop (the mesh, multi-process runs,
+  replays) do what the JAX package does, and the pipeline builds over a
+  mesh of one gloo process.
 """
+import functools
 import json
 import os
 import types
@@ -86,13 +88,57 @@ def test_loop_choice(tmp_path, extra, loop):
 
 @pytest.mark.parametrize("extra", ["mesh_shape={'data':2}", "distributed=True",
                                    "save_replay=True"])
-def test_unported_features_still_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain.main(ARGS + [f"local_results_path={tmp_path}", extra])
+def test_unported_features_still_raise(tmp_path, monkeypatch, extra):
+    """``mesh_shape={'data':2}`` in one process raises ValueError; a
+    distributed fused run of one gloo process logs the same series as the
+    undistributed run (its collectives are identities); ``save_replay``
+    without a checkpoint trains and writes no replay."""
+    if extra == "mesh_shape={'data':2}":
+        with pytest.raises(ValueError, match="needs 2 processes"):
+            tmain.main(ARGS + [f"local_results_path={tmp_path}", extra])
+        return
+    short = "t_max=400"
+    if extra == "distributed=True":
+        from refil_torch.parallel.gate import free_port
+
+        extra = (extra, "num_processes=1", "process_id=0",
+                 f"coordinator_address=127.0.0.1:{free_port()}")
+        rows_one, _, s_one = _run(tmp_path, "one", monkeypatch, short)
+    rows, calls, summary = _run(tmp_path, "run", monkeypatch, short,
+                                *(extra if isinstance(extra, tuple) else (extra,)))
+    assert summary["loop"] == "fused" and summary["updates"] >= 1 and len(calls) > 1
+    assert not torch.distributed.is_initialized()
+    if isinstance(extra, tuple):
+        assert summary["world_size"] == 1 and summary["t_env"] == s_one["t_env"]
+
+        def series(rows):
+            return [(r["key"], r["t"], r["value"]) for r in rows
+                    if not r["key"].startswith("time_")]
+
+        assert series(rows) == series(rows_one)
+    else:
+        assert not os.path.exists(tmp_path / "run" / "replays")
 
 
 def test_pipeline_refuses_a_mesh():
-    args = types.SimpleNamespace(batch_size_run=4)
-    learner = types.SimpleNamespace(device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        FusedPipeline(None, learner, 16, args, mesh=object())
+    """The pipeline over a mesh checks that its sizes divide over the ranks
+    (JAX ``core/pipeline.py:108-114``); over a mesh of one gloo process it
+    builds."""
+    from refil_torch.parallel.gate import free_port
+    from refil_torch.parallel.mesh import MeshContext
+
+    args = types.SimpleNamespace(batch_size_run=4, batch_size=8, buffer_dtype="float32",
+                                 training_iters=2, target_update_interval=200)
+    learner = types.SimpleNamespace(device=torch.device("cpu"), has_gt_diagnostics=False)
+    three = types.SimpleNamespace(n_data=3)
+    three.check_divisible = functools.partial(MeshContext.check_divisible, three)
+    with pytest.raises(ValueError, match="batch_size_run 4 must divide over 3"):
+        FusedPipeline(None, learner, 16, args, mesh=three)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                         world_size=1, rank=0)
+    try:
+        mesh = MeshContext(torch.device("cpu"))
+        pipe = FusedPipeline(None, learner, 16, args, mesh=mesh)
+        assert pipe.mesh is mesh and mesh.n_data == 1 and pipe.buffer_size == 16
+    finally:
+        torch.distributed.destroy_process_group()
