@@ -15,7 +15,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      shape of the Group Matching slice and of the combat slice (a rollout
      step's at each width the slices' configs give a rollout: batch_size_run,
      the fused loop's one test rollout of all of test_nepisode and the eval
-     phase's rollout of the combat config's own test_nepisode; plus an
+     phase's rollout of the combat config's own test_nepisode, and each
+     scale run's (phase 13: Bp 512 and 4,096 at the combat widths, 4,096 at
+     Group Matching's; the GRU at T 1, R 4,096 and 32,768); plus an
      Nq < Ne case with a fully blocked row, a post-masked row, no pre-mask,
      and batches that are not a multiple of the block's samples, one of them
      at the combat widths; and REFIL's own Group Matching pre-masks, the
@@ -97,19 +99,30 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      graphs) against the undistributed run: every logged loss within 1e-5
      of max(1, |loss|), the graphs' recorded launches with one all_gather a
      block and one all_reduce an update, both runs' env-steps/s.
-  13. own kernels, last (once torch.profiler has run in a process, its
+  13. scale: the JAX package's own throughput configurations (bench.py)
+     through ``refil_torch.main`` at full width in the fused loop, each in
+     this process: refil_group_matching at batch_size_run 4096 (float32),
+     refil on 3-8sz_symmetric under sc2custom in bfloat16 at B 512 and 4096
+     (``SCALE_RUNS``), each >= 2 dispatches of >= 2 replayed train blocks
+     and B-wide test rollouts; checked as phase 4's runs, and every logged
+     loss and grad_norm finite; prints env-steps/s, seconds a replayed
+     block, dispatches, test rollouts, graphs, ring bytes and peak device
+     memory; then phase 6's graph-versus-eager pair at B 512 in bfloat16;
+     and the phase's seconds.
+  14. own kernels, last (once torch.profiler has run in a process, its
      later launches are slower): a profile of one attention forward, one
      attention backward and one GRU backward call, which must run only the
      repository's kernels; then one replay of the combat train block under
      the profiler: its attention and GRU launches, counted by a kernel only
      each launch runs, are the ones its capture recorded, and no library
      attention or recurrence kernel (SDPA, flash, cuDNN) runs in it.
-  14. the ``kernels`` line (launches from the fused combat run, with the
-     fused Group Matching and flat runs' beside them) and the last line
+  15. the ``kernels`` line (launches from the fused combat run, with the
+     fused Group Matching and flat runs' and each scale run's beside them)
+     and the last line
      ``{"ok": true, "device": ...}``.
 
-Each phase that drives a path (4, 5, 6, both runs of 7, 8's resume, 9 and
-the runs of 10, 11 and 12)
+Each phase that drives a path (4, 5, 6, both runs of 7, 8's resume, 9,
+the runs of 10, 11 and 12, and each run of 13 and its pair)
 sets the launch counts to 0 just before it and reads them just after (8's
 preempted run is another process, whose counts this one cannot read). It exits non-zero, printing no result, where CUDA
 is not available or the ``refil_torch`` package is not beside it.
@@ -213,6 +226,44 @@ def slice_argv(path, fused):
     return argv + ["use_cuda=True", f"local_results_path={SMOKE_RESULTS}"]
 
 
+# The JAX package's own throughput configurations (bench.py), trained
+# through the port's CLI at full width in the fused loop: Group Matching at
+# batch_size_run 4096 with the ring grown to B (bench.py:39-41), in float32;
+# the flagship refil on 3-8sz_symmetric under sc2custom, the env config
+# bench.py:_build_combat loads, in bfloat16 at B 512 and 4096 with the ring
+# max(5000, 2 B) (bench.py:190; 5,000 rounds up to 5,120 at B 512).
+SCALE_RUNS = {
+    "gm_b4096": ("group_matching", [
+        "--config=refil_group_matching", "--env-config=group_matching", "with",
+        "batch_size_run=4096", "buffer_size=4096"]),
+    "combat_b512_bf16": ("combat", [
+        "--config=refil", "--env-config=sc2custom", "with", "scenario=3-8sz_symmetric",
+        "batch_size_run=512", "compute_dtype=bfloat16", "buffer_size=5000"]),
+    "combat_b4096_bf16": ("combat", [
+        "--config=refil", "--env-config=sc2custom", "with", "scenario=3-8sz_symmetric",
+        "batch_size_run=4096", "compute_dtype=bfloat16", "buffer_size=8192"]),
+}
+# t_max = SCALE_BLOCKS x B x episode_limit env steps: after the one warm-up
+# block (B > batch_size), >= 2 dispatches of >= 2 replayed train blocks
+# whatever the episodes' lengths; test_interval half of it, so a B-wide test
+# rollout (test_nepisode < B) runs after the warm-up block and once more
+SCALE_BLOCKS = 9
+
+
+def scale_argv(name):
+    """The command line of a scale run, its t_max and test_interval from
+    its config's batch_size_run and episode_limit."""
+    from refil_torch.config import load_config
+    from refil_torch.main import parse_cli
+
+    argv = SCALE_RUNS[name][1]
+    alg, env, overrides = parse_cli(argv)
+    cfg = load_config(alg=alg, env=env, overrides=overrides)
+    t_max = SCALE_BLOCKS * cfg["batch_size_run"] * cfg["env_args"]["episode_limit"]
+    return [*argv, f"t_max={t_max}", f"test_interval={t_max // 2}", "use_cuda=True",
+            f"local_results_path={os.path.join(SMOKE_RESULTS, name)}"]
+
+
 def eval_argv(checkpoint_path, load_step):
     """The command line of the eval phase: an eval-only combat run over every
     scenario of 3-8sz_symmetric at the config's own test_nepisode."""
@@ -236,18 +287,29 @@ def n_test_episodes(argv):
     return bsr, max(1, cfg["test_nepisode"] // bsr) * bsr
 
 
+def fused_widths(argv):
+    """{name: envs} of a fused run's rollouts: a training rollout steps
+    batch_size_run envs, a test run all of test_nepisode in one rollout
+    (``run.py:_run_fused_loop``)."""
+    bsr, n_test = n_test_episodes(argv)
+    return {"rollout": bsr, **({"test_rollout": n_test} if n_test != bsr else {})}
+
+
 def rollout_widths(path):
     """{name: envs} of the rollouts a slice's runs make, from its config: a
     training rollout (and each of the classic loop's test runs) steps
     batch_size_run envs, the fused loop's test run all of test_nepisode in
-    one rollout (``run.py:_run_fused_loop``), and on combat the eval phase's
-    rollout all of the config's own test_nepisode."""
-    bsr, n_test = n_test_episodes(slice_argv(path, fused=True))
-    out = {"rollout": bsr, **({"test_rollout": n_test} if n_test != bsr else {})}
+    one rollout, and on combat the eval phase's rollout all of the config's
+    own test_nepisode; then each scale run's on that path, named after it."""
+    out = fused_widths(slice_argv(path, fused=True))
     if path == "combat":
         n_eval = n_test_episodes(eval_argv("", 0))[1]
         if n_eval not in out.values():
             out["eval_rollout"] = n_eval
+    for name, (on, _) in SCALE_RUNS.items():
+        if on == path:
+            out.update({f"{name}_{tag}": envs
+                        for tag, envs in fused_widths(scale_argv(name)).items()})
     return out
 
 
@@ -421,7 +483,7 @@ def phase_device():
     return name_power
 
 
-def phase_build(attn_rows):
+def phase_build(attn_rows, gru_rows):
     from refil_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -444,13 +506,14 @@ def phase_build(attn_rows):
                      **plan._asdict())
     from refil_torch.ops import gru_kernel
 
-    for R in GRU_PLAN_ROWS:
+    # the plan sweep at the learner's T, then every call of the slices
+    for tag, T, R in [("plan", 151, R) for R in GRU_PLAN_ROWS] + list(gru_rows):
         for dtype in (torch.float32, torch.bfloat16):
             for bwd in (False, True):
-                plan = gru_kernel.launch_plan(bwd, 151, R, GRU_HIDDEN, dtype,
+                plan = gru_kernel.launch_plan(bwd, T, R, GRU_HIDDEN, dtype,
                                               torch.cuda.current_device())
-                emit("launch_plan", kernel="gru_bwd" if bwd else "gru_fwd", T=151, R=R,
-                     dtype=str(dtype).replace("torch.", ""), **plan._asdict())
+                emit("launch_plan", kernel="gru_bwd" if bwd else "gru_fwd", case=tag, T=T,
+                     R=R, dtype=str(dtype).replace("torch.", ""), **plan._asdict())
     return built
 
 
@@ -1072,7 +1135,7 @@ def state_tensors(ps):
     return out
 
 
-def phase_graph_vs_eager(name_power):
+def phase_graph_vs_eager(name_power, argv=None, phase="graph_vs_eager"):
     """One combat train block eagerly and one as a graph replay, from one
     cloned state and cloned generator states: the ring planes and counters
     equal, the parameters, targets and optimiser state within 1e-4 of
@@ -1080,13 +1143,18 @@ def phase_graph_vs_eager(name_power):
     it, one eager train block under ``set_sync_debug_mode("error")``: the
     block waits for the device nowhere. After it, two replays must draw
     different actions (the generators are registered with the graph).
-    Returns the pipeline and its state, for ``own_kernels_only``."""
+    ``argv``: the combat command line whose pipeline this builds (default:
+    refil on 3-8sz_symmetric, whose pipeline then also restores a
+    checkpoint in place). Returns the pipeline and its state, for
+    ``own_kernels_only``."""
     from refil_torch import config as tconfig
     from refil_torch import run as trun
     from refil_torch.core.pipeline import FusedPipeline
+    from refil_torch.main import parse_cli
 
-    cfg = tconfig.load_config(alg="refil", env="entity_battle",
-                              overrides=["scenario=3-8sz_symmetric", "use_cuda=True"])
+    alg, env, overrides = parse_cli(argv or ["--config=refil", "--env-config=entity_battle",
+                                             "with", "scenario=3-8sz_symmetric"])
+    cfg = tconfig.load_config(alg=alg, env=env, overrides=[*overrides, "use_cuda=True"])
     args = tconfig.config_to_args(tconfig.args_sanity_check(cfg))
     dev = torch.device("cuda", torch.cuda.current_device())
     reset_launches()
@@ -1147,13 +1215,14 @@ def phase_graph_vs_eager(name_power):
     tol = 1e-4
     ok = (all(exact.values()) and all(v <= tol for v in scaled.values()) and stats_equal
           and differ > 0 and launches == expected)
-    emit("graph_vs_eager", card=name_power, ok=ok, exact=exact, scaled_err=scaled, tol=tol,
+    emit(phase, card=name_power, ok=ok, command=argv, exact=exact, scaled_err=scaled, tol=tol,
          stats_equal=stats_equal, metrics_scaled_err=metrics_err,
          replays_actions_differ_share=differ, sync_free_eager_block=True, graphs=graphs,
          launches=launches, expected_launches=expected)
     if not ok:
-        raise AssertionError("graph_vs_eager: the replayed block disagrees with the eager one")
-    check_restore_in_place(pipe, ps, name_power)
+        raise AssertionError(f"{phase}: the replayed block disagrees with the eager one")
+    if argv is None:
+        check_restore_in_place(pipe, ps, name_power)
     return pipe, ps
 
 
@@ -1617,11 +1686,60 @@ def _replayed(summary):
     return sum(d["replay_seconds"] for d in train) / blocks if blocks else None
 
 
-def kernels_line(rows, launches_by_path):
+def phase_scale(name_power):
+    """Each of SCALE_RUNS through ``refil_torch.main``, launch counts reset
+    before it and read after it, checked as a slice's (launches, finite last
+    loss, every later block of a kind a replay); then, for each: >= 2
+    dispatches of >= 2 replayed train blocks, >= 1 test rollout of
+    batch_size_run envs, every logged loss and grad_norm finite and, on
+    combat, a battle_won_mean logged. Prints (``scale_run``, ``graphs``
+    and ``scale`` lines) its env-steps/s (whole run and replayed train
+    blocks), seconds a replayed block, dispatches, last metrics, graphs,
+    test rollouts, ring bytes and peak device memory. Then a replayed
+    train block against an eager one from one cloned state at
+    combat_b512_bf16 (``phase_graph_vs_eager``). Returns each run's launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    for name, (path, _) in SCALE_RUNS.items():
+        argv = scale_argv(name)
+        out = fresh_dir(os.path.join(SMOKE_RESULTS, name))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        summary, launches[name] = run_slice(path, argv, name_power, 4, phase="scale_run")
+        bsr = n_test_episodes(argv)[0]
+        replayed = [d["replays"] for d in summary["dispatches"] if d["train"]]
+        logged_vals = {k: [v for _, v in logged(out, k)] for k in ("loss", "grad_norm")}
+        # the scale_run line before it holds the rates, dispatches and last
+        # metrics, the graphs line the captures
+        row = dict(run=name, card=name_power, batch_size_run=bsr,
+                   replays_per_train_dispatch=replayed, tests=summary["tests"],
+                   ring_bytes=summary["ring_bytes"], allocated_before_bytes=before,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   max_memory_reserved=torch.cuda.max_memory_reserved(),
+                   losses_logged=len(logged_vals["loss"]))
+        checks = {
+            "two_dispatches_of_two_replays": sum(r >= 2 for r in replayed) >= 2,
+            "b_wide_test_rollout": bool(summary["tests"]) and all(
+                t["episodes"] == bsr for t in summary["tests"]),
+            "finite_losses": all(vals and all(map(math.isfinite, vals))
+                                 for vals in logged_vals.values()),
+            "battle_won_logged": path != "combat" or "battle_won_mean" in summary["last_logged"],
+        }
+        emit("scale", ok=all(checks.values()), checks=checks, **row)
+        if not all(checks.values()):
+            raise AssertionError(f"scale {name}: failed {[k for k, v in checks.items() if not v]}")
+    phase_graph_vs_eager(name_power, SCALE_RUNS["combat_b512_bf16"][1],
+                         phase="scale_graph_vs_eager")
+    emit("scale_phase", card=name_power, seconds=time.perf_counter() - t0)
+    return launches
+
+
+def kernels_line(rows, launches_by_path, launches_by_scale_run):
     """One entry per ported kernel, its numbers from the largest call of the
     combat slice in float32 (attention: agent x3, Bp = 14496; GRU: agent x3,
     T = 151, R = 768); ``launches`` from the combat slice's run, and the
-    Group Matching and flat slices' beside it."""
+    Group Matching and flat slices' and each scale run's beside it."""
     attn = next(r for r in rows if r["kernel"] == "entity_attn" and r["path"] == "combat"
                 and r["case"] == "agent_x3" and r["dtype"] == "float32")
     gru = next(r for r in rows if r["kernel"] == "gru" and r["case"] == "agent_x3"
@@ -1638,6 +1756,7 @@ def kernels_line(rows, launches_by_path):
             "launches": launches_by_path["combat"][name],
             "launches_group_matching": launches_by_path["group_matching"][name],
             "launches_flat": launches_by_path["flat"][name],
+            **{f"launches_{run}": n[name] for run, n in launches_by_scale_run.items()},
             "max_abs_err": row[f"{kind}_max_abs_err"], "ms": row["ms"][kind],
             "plain_ms": row["ms"][f"{kind}_plain"], "bound_ms": row[f"{kind}_bound_ms"],
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row["ms"][f"{kind}_library"],
@@ -1655,7 +1774,7 @@ def main(argv) -> None:
     sys.path.insert(0, HERE)
     name_power = phase_device()
     attn_rows, gru_rows = attn_shapes(), gru_shapes()
-    phase_build(attn_rows)
+    phase_build(attn_rows, gru_rows)
     rows = phase_kernels(attn_rows, gru_rows)
     replay = None
     if not kernels_only:
@@ -1669,13 +1788,14 @@ def main(argv) -> None:
         phase_heuristic(name_power)
         phase_record(name_power, ckpt, step)
         phase_distributed(name_power)
+        scale = phase_scale(name_power)
     # last: once torch.profiler has run in a process, every later kernel
     # launch there is slower, and the slices' env-steps/s would show it
     own_kernels_only(replay)
     if kernels_only:
         return
     print(name_power, flush=True)
-    print(json.dumps(kernels_line(rows, launches)), flush=True)
+    print(json.dumps(kernels_line(rows, launches, scale)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

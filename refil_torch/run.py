@@ -440,7 +440,8 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
     fused loop's graph captures excluded), the last value of every logged
     stat, the checkpoints written and loaded, whether a SIGTERM stopped the
     run, and for the fused loop its graphs and dispatches (each also with
-    the seconds and env steps of its graph replays alone)."""
+    the seconds and env steps of its graph replays alone), its test
+    rollouts (t_env, width, seconds) and its ring's bytes."""
     runner, learner, gens = build_training(args, logger, device)
     log = logger.console_logger
     mesh = runner.mesh = maybe_make_mesh(args, device, log)
@@ -631,7 +632,7 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
     counts = {"blocks": 0, "test_blocks": 0, "updates": 0, "iterations": 0, "diag_calls": 0}
     train_seconds, train_steps = 0.0, 0
     last_metrics: Dict[str, float] = {}
-    dispatches, saves = [], []
+    dispatches, saves, tests = [], [], []
 
     # Between host-cadence boundaries (test, model save, t_max) the loop
     # runs as many blocks as fit in one dispatch. A block takes at most
@@ -718,7 +719,10 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
                      time_str(time.time() - start_time))
             last_time = time.time()
             last_test_T = runner.t_env
+            t_test = time.perf_counter()
             runner.run(test_mode=True, batch_size=n_test_eps, generator=gens["test"])
+            tests.append({"t_env": runner.t_env, "episodes": n_test_eps,
+                          "seconds": time.perf_counter() - t_test})
             counts["test_blocks"] += 1
 
         if _save_due(args, runner.t_env, model_save_time):
@@ -739,4 +743,5 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
     return {**counts, "episodes": cadence["episode"], "train_seconds": train_seconds,
             "train_steps": train_steps, "last_metrics": last_metrics, "dispatches": dispatches,
             "graphs": {k: g.summary() for k, g in pipeline.graphs.items()}, "saves": saves,
-            "preempted": preempted}
+            "preempted": preempted, "tests": tests,
+            "ring_bytes": sum(v.numel() * v.element_size() for v in ps.ring.values())}

@@ -28,7 +28,8 @@ launches, whose trace took longer to parse than the run. Prints JSON lines:
     between device syncs at its ends), summed device-kernel seconds, the
     device's idle share of the wall time, the share of device time in the
     port's own kernels (the entity attention's and the GRU's, their stages'
-    products included), and the number of kernels launched (the run's
+    products included) and of the products (``csrc/gemm.cuh``) alone, and
+    the number of kernels launched (the run's
     env-steps/s are not printed: the trace is parsed inside the run;
     ``chip_smoke.py`` measures them unprofiled);
   * ``stages``: the device seconds of each stage of the entity-attention
@@ -205,6 +206,8 @@ def main(argv) -> None:
 
     stages = stage_seconds(kernels)
     gru_fwd = sum(t for name, (_, t) in by_name.items() if "gru_fwd_kernel" in name) / 1e6
+    # csrc/gemm.cuh's products, inside the attention's and the GRU's calls
+    gemm = sum(t for name, (_, t) in by_name.items() if "gemm::gemm_kernel" in name) / 1e6
 
     def share(seconds):
         return seconds / (dev_us / 1e6) if dev_us else None
@@ -218,6 +221,7 @@ def main(argv) -> None:
         "entity_attn_share_of_device_time": share(sum(
             (stages[c] or {}).get("total", 0.0) for c in ("attn_fwd", "attn_bwd"))),
         "gru_share_of_device_time": share(gru_fwd + (stages["gru_bwd"] or {}).get("total", 0.0)),
+        "gemm_share_of_device_time": share(gemm),
         "kernel_launches": len(kernels), "kernel_launches_per_block": len(kernels) / blocks,
         "run_updates": summary["updates"], "run_blocks": summary["blocks"],
         "graphs": summary.get("graphs"),

@@ -88,7 +88,7 @@ def test_loop_choice(tmp_path, extra, loop):
 
 @pytest.mark.parametrize("extra", ["mesh_shape={'data':2}", "distributed=True",
                                    "save_replay=True"])
-def test_unported_features_still_raise(tmp_path, monkeypatch, extra):
+def test_mesh_distributed_and_replay_options(tmp_path, monkeypatch, extra):
     """``mesh_shape={'data':2}`` in one process raises ValueError; a
     distributed fused run of one gloo process logs the same series as the
     undistributed run (its collectives are identities); ``save_replay``
