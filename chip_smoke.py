@@ -95,10 +95,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      generator's seed) stepped once with the restored agent's greedy
      actions; a video that fails to write fails the phase.
   12. distributed: a fused combat run as one NCCL process
-     (``distributed=True``, world size 1, the collectives captured in the
-     graphs) against the undistributed run: every logged loss within 1e-5
-     of max(1, |loss|), the graphs' recorded launches with one all_gather a
-     block and one all_reduce an update, both runs' env-steps/s.
+     (``distributed=True``, world size 1, the sharded ring's path with its
+     collectives captured in the graphs) against the undistributed run,
+     both saving a checkpoint with the ring: every logged loss within 1e-5
+     of max(1, |loss|); the graphs' recorded collectives: a block's stats
+     all_gather (fewer bytes than one episode: no episode plane), the
+     sample's reduce_scatter once a train block, the mask counts'
+     all_reduce and one an update; the rank's ring bytes and episodes
+     against the undistributed run's; the mesh run's last checkpoint
+     restored into an undistributed pipeline, whose ring then equals the
+     undistributed run's bit for bit; both runs' env-steps/s and replayed
+     seconds a block.
   13. scale: the JAX package's own throughput configurations (bench.py)
      through ``refil_torch.main`` at full width in the fused loop, each in
      this process: refil_group_matching at batch_size_run 4096 (float32),
@@ -1067,17 +1074,20 @@ def run_slice(path, argv, name_power, min_updates, phase="slice", collectives=Fa
 def check_graphs(path, summary, per_iter, name_power, collectives=False):
     """The fused run replayed every block after the first of its kind, and
     each capture recorded one block's launches; with ``collectives`` (a
-    data mesh) also its collectives: one all_gather a block and one
-    all_reduce an update."""
+    data mesh) also its collectives: one all_gather a block (its stats), one
+    reduce_scatter a train block (the sample), one all_reduce of the
+    block's mask counts and one an update."""
     graphs = summary["graphs"]
     warm = summary["blocks"] - summary["updates"]
     T = summary["episode_limit"]
     want = {"warm": (warm - 2, expected_launches(path, 0, T, 0)),
             "train": (summary["updates"] - 2,
                       expected_launches(path, per_iter, T, int(summary["diag_calls"] > 0)))}
-    if collectives:
-        want["warm"][1].update(all_gather=1, all_reduce=0)
-        want["train"][1].update(all_gather=1, all_reduce=per_iter)
+    if collectives:  # the stats' all_gather; the sample's exchange, the
+        # mask counts' all_reduce and one an update (and the gt diagnostics')
+        want["warm"][1].update(all_gather=1, all_reduce=0, reduce_scatter=0)
+        want["train"][1].update(all_gather=1, reduce_scatter=1, all_reduce=per_iter + 1
+                                + int(summary["diag_calls"] > 0))
     emit("graphs", path=path, card=name_power, **graphs)
     for kind, (replays, launches) in want.items():
         g = graphs.get(kind)
@@ -1642,42 +1652,100 @@ DIST_T_MAX = 6000
 
 def phase_distributed(name_power):
     """A fused combat run at full width with ``distributed=True`` as one
-    NCCL process, against the undistributed run at the same seed: every
-    loss logged (each update) equal within 1e-5 of max(1, |loss|), both
-    runs' launches checked as a slice's, and the distributed graphs' recorded
-    launches holding the collectives (one all_gather a block, one
-    all_reduce an update). At world size 1 NCCL launches no kernel (its
-    all_gather is one device-to-device copy, its in-place all_reduce
-    nothing), so equal losses over the replayed blocks are what show the
-    captured all_gather's copy replays."""
+    NCCL process, the sharded ring's path, against the undistributed run at
+    the same seed, each saving a checkpoint with the ring: every loss logged
+    (each update) equal within 1e-5 of max(1, |loss|), both runs' launches
+    checked as a slice's, and the distributed graphs' recorded collectives
+    (``check_graphs``): the train graph's all_gather carries fewer bytes
+    than one episode (the stats, no episode plane). The rank's ring holds
+    what the undistributed ring holds (world size 1), and the mesh run's
+    last checkpoint, restored into an undistributed pipeline, gives its ring
+    the undistributed run's bytes exactly. At world size 1 NCCL launches no
+    kernel for a sum (its all_gather and reduce_scatter are device copies,
+    its in-place all_reduce nothing), so equal losses over the replayed
+    blocks are what show the captured copies replay."""
     import torch.distributed as dist
 
     from refil_torch.parallel.gate import free_port
 
     off_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "dist_off"))
     on_dir = fresh_dir(os.path.join(SMOKE_RESULTS, "dist_on"))
-    s_off, _ = run_slice("combat", resume_argv("dist_off", DIST_T_MAX), name_power, 4,
+    # a checkpoint with the ring after the first dispatch and at the end
+    save = ["save_model=True", f"save_model_interval={10 * DIST_T_MAX}",
+            "checkpoint_buffer=True"]
+    s_off, _ = run_slice("combat", resume_argv("dist_off", DIST_T_MAX, *save), name_power, 4,
                          phase="distributed_run")
     s_on, _ = run_slice("combat", resume_argv(
-        "dist_on", DIST_T_MAX, "distributed=True", "num_processes=1", "process_id=0",
+        "dist_on", DIST_T_MAX, *save, "distributed=True", "num_processes=1", "process_id=0",
         f"coordinator_address=127.0.0.1:{free_port()}"), name_power, 4,
         phase="distributed_run", collectives=True)
     a, b = logged(off_dir, "loss"), logged(on_dir, "loss")
     same_t = [t for t, _ in a] == [t for t, _ in b]
     diffs = [abs(va - vb) / max(1.0, abs(va)) for (_, va), (_, vb) in zip(a, b)]
-    train = s_on["graphs"]["train"]["launches"]
+    train = s_on["graphs"]["train"]
+    moved = train.get("collective_bytes", {})
+    episode_bytes = s_off["ring_bytes"] // s_off["ring_episodes"]
+    ring_same = (s_on["ring_bytes"] == s_off["ring_bytes"] == s_on["ring_bytes_world"]
+                 and s_on["ring_episodes"] == s_off["ring_episodes"])
+    restored = restore_mesh_ring(s_on, s_off)
     ok = (bool(a) and same_t and max(diffs) <= 1e-5 and s_on["world_size"] == 1
-          and not dist.is_initialized() and train.get("all_reduce", 0) > 0)
+          and not dist.is_initialized() and train["launches"].get("reduce_scatter") == 1
+          and 0 < moved.get("all_gather", 0) < episode_bytes and ring_same
+          and restored["ring_bit_equal"] and restored["counters_equal"])
     emit("distributed", card=name_power, ok=ok, backend="nccl", world_size=s_on["world_size"],
          losses_compared=len(a), same_t_env=same_t, max_scaled_loss_diff=max(diffs, default=None),
-         bit_equal=a == b, tol=1e-5, train_graph_launches=train,
+         bit_equal=a == b, tol=1e-5, train_graph_launches=train["launches"],
+         train_graph_collective_bytes=moved, episode_bytes=episode_bytes,
+         ring_bytes=s_on["ring_bytes"], ring_episodes=s_on["ring_episodes"],
+         ring_bytes_world=s_on["ring_bytes_world"],
+         undistributed_ring_bytes=s_off["ring_bytes"], **restored,
          env_steps_per_s=s_on["env_steps_per_s"],
          undistributed_env_steps_per_s=s_off["env_steps_per_s"],
          replayed_seconds_per_block=_replayed(s_on),
          undistributed_replayed_seconds_per_block=_replayed(s_off))
+    shutil.rmtree(off_dir, ignore_errors=True)
+    shutil.rmtree(on_dir, ignore_errors=True)
     if not ok:
         raise AssertionError("distributed: the one-process NCCL run disagrees with the "
                              "undistributed run")
+
+
+def restore_mesh_ring(s_on, s_off):
+    """The mesh run's last checkpoint (its ring gathered in global slot
+    order) restored, as a resume does, into a fresh undistributed combat
+    pipeline on the card; its ring and counters against the undistributed
+    run's last checkpoint, bit for bit."""
+    from refil_torch import config as tconfig
+    from refil_torch import run as trun
+    from refil_torch.core.pipeline import FusedPipeline
+
+    on, off = s_on["saves"][-1], s_off["saves"][-1]
+    payload_off = torch.load(os.path.join(off["path"], trun.STATE_FILE), map_location="cpu",
+                             weights_only=True)["pipeline"]
+    argv = resume_argv("dist_restore", DIST_T_MAX)
+    cfg = tconfig.load_config(alg="refil", env="entity_battle", overrides=argv[3:])
+    args = tconfig.config_to_args(tconfig.args_sanity_check(cfg))
+    device = torch.device("cuda", torch.cuda.current_device())
+    runner, learner, gens = trun.build_training(args, None, device)
+    pipe = FusedPipeline(runner, learner, args.buffer_size, args)
+    ps = pipe.init_state(gens["sample"])
+    t0 = time.perf_counter()
+    trun.restore_pipeline_state(ps, trun._load_checkpoint(on["path"], learner))
+    torch.cuda.synchronize()
+    load_seconds = time.perf_counter() - t0
+    ring_equal = set(ps.ring) == set(payload_off["ring"]) and all(
+        torch.equal(v.cpu().view(torch.uint8), payload_off["ring"][k].view(torch.uint8))
+        for k, v in ps.ring.items())
+    counters = all(int(getattr(ps, k)) == payload_off[k] for k in trun.PIPELINE_COUNTERS)
+    out = {"ring_bit_equal": ring_equal, "counters_equal": counters,
+           "checkpoint_t_env": [payload_off["t_env"], int(ps.t_env)],
+           "checkpoint_bytes": on["bytes"], "undistributed_checkpoint_bytes": off["bytes"],
+           "save_seconds": on["seconds"], "undistributed_save_seconds": off["seconds"],
+           "ring_gather_device_bytes": on.get("ring_gather_bytes"),
+           "restore_seconds": load_seconds}
+    del ps, pipe, runner, learner, payload_off
+    torch.cuda.empty_cache()
+    return out
 
 
 def _replayed(summary):

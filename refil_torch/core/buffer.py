@@ -9,6 +9,14 @@ two rings sample the same episodes.
 ``buffer_dtype="bfloat16"`` stores the float32 feature planes
 (``FEATURE_RING_KEYS``) compressed and casts them back on read; reward,
 terminated and the masks keep their dtype.
+
+Under a data mesh (``mesh``, as the JAX ring's ``sharding``) each rank holds
+``buffer_size / n`` episodes, one contiguous chunk of the global slots
+(``RingLayout`` with period ``buffer_size``: the insert positions wrap at any
+offset, so they are not aligned to a block): it inserts, from the gathered
+episode batch, the rows whose slots it holds, and ``sample_many`` draws the
+same global slots on every rank and returns this rank's shard of the sample
+(``MeshContext.gather_sample``).
 """
 from __future__ import annotations
 
@@ -30,17 +38,21 @@ def storage_dtype(key: str, dtype: torch.dtype, feature_dtype: str) -> torch.dty
 
 class ReplayBuffer:
     def __init__(self, template: Dict[str, torch.Tensor], buffer_size: int, seed: int = 0,
-                 device=None, feature_dtype: str = "float32"):
+                 device=None, feature_dtype: str = "float32", mesh=None):
         """``template``: one episode batch (B, T+1, ...) giving shapes and dtypes.
-        ``device``: where the ring lives (default: the template's device)."""
+        ``device``: where the ring lives (default: the template's device).
+        ``mesh``: a ``parallel.mesh.MeshContext`` to shard the ring over."""
         if feature_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"buffer_dtype must be float32 or bfloat16, not {feature_dtype!r}")
         self.buffer_size = buffer_size
         first = next(iter(template.values()))
         self.device = torch.device(device) if device is not None else first.device
         self._out_dtypes = {k: v.dtype for k, v in template.items()}
+        self.mesh = mesh
+        self.layout = None if mesh is None else mesh.ring_layout(buffer_size, buffer_size)
+        local = buffer_size if mesh is None else self.layout.local_size
         self.data = {
-            k: torch.zeros((buffer_size,) + tuple(x.shape[1:]),
+            k: torch.zeros((local,) + tuple(x.shape[1:]),
                            dtype=storage_dtype(k, x.dtype, feature_dtype), device=self.device)
             for k, x in template.items()
         }
@@ -50,10 +62,16 @@ class ReplayBuffer:
 
     def insert_episode_batch(self, batch: Dict[str, torch.Tensor]) -> None:
         B = next(iter(batch.values())).shape[0]
-        positions = torch.as_tensor((self.index + np.arange(B)) % self.buffer_size,
-                                    device=self.device)
+        slots = (self.index + np.arange(B)) % self.buffer_size
+        rows = np.arange(B)
+        if self.layout is not None:  # the rows whose slots this rank holds
+            rows = rows[self.layout.owner(slots) == self.layout.rank]
+            slots = self.layout.local(slots[rows])
+        positions = torch.as_tensor(slots, device=self.device)
+        rows = torch.as_tensor(rows)
         for k, buf in self.data.items():
-            buf[positions] = batch[k].to(device=self.device, dtype=buf.dtype)
+            x = batch[k]
+            buf[positions] = x[rows.to(x.device)].to(device=self.device, dtype=buf.dtype)
         self.index = int((self.index + B) % self.buffer_size)
         self.episodes_in_buffer = min(self.episodes_in_buffer + B, self.buffer_size)
 
@@ -62,11 +80,17 @@ class ReplayBuffer:
 
     def _gather(self, idx: np.ndarray, device) -> Dict[str, torch.Tensor]:
         index = torch.as_tensor(idx, device=self.device)
+        if self.mesh is not None:
+            rows = self.mesh.gather_sample(self.data, index.reshape(-1, idx.shape[-1]),
+                                           self.layout, device=device)
+            return {k: v.reshape(idx.shape[:-1] + v.shape[1:]).to(dtype=self._out_dtypes[k])
+                    for k, v in rows.items()}
         return {k: self.data[k][index].to(device=device, dtype=self._out_dtypes[k])
                 for k in self.data}
 
     def sample(self, batch_size: int, device=None) -> Dict[str, torch.Tensor]:
-        """Uniform sample without replacement, (batch_size, T+1, ...)."""
+        """Uniform sample without replacement, (batch_size, T+1, ...); under a
+        mesh this rank's (batch_size / n, T+1, ...) shard of it."""
         if not self.can_sample(batch_size):
             raise ValueError(f"{self.episodes_in_buffer} episodes cannot give {batch_size}")
         if self.episodes_in_buffer == batch_size:
@@ -77,7 +101,9 @@ class ReplayBuffer:
 
     def sample_many(self, n_iters: int, batch_size: int, device=None) -> Dict[str, torch.Tensor]:
         """``n_iters`` independent samples stacked on a leading axis
-        (n_iters, batch_size, T+1, ...), gathered in one indexing op per plane."""
+        (n_iters, batch_size, T+1, ...), gathered in one indexing op per plane
+        (under a mesh, one exchange for all: this rank's (n_iters,
+        batch_size / n, T+1, ...) shard)."""
         if not self.can_sample(batch_size):
             raise ValueError(f"{self.episodes_in_buffer} episodes cannot give {batch_size}")
         if self.episodes_in_buffer == batch_size:

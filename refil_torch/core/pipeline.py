@@ -32,14 +32,19 @@ Explicit generators take the place of the JAX key: the runner's (rollout),
 the pipeline's (sample) and the learner's (imagine groups, diagnostics).
 Each is registered with the graphs, so every replay draws new numbers.
 
-With a data mesh (``parallel/mesh.py``, one process per device), a block
-rolls out this rank's shard of the envs from the global draws and gathers
-the whole episode batch into a ring replicated on every rank (one
-``all_gather``); the sample is drawn at the global shape on every rank alike,
-each rank trains on its slice, and each update sums the gradients and the
-metrics over the ranks (one ``all_reduce``). On CUDA both collectives are
-captured into the graphs with the rest of the block (NCCL); the mesh counts
-them beside the kernels' launches.
+With a data mesh (``parallel/mesh.py``, one process per device), the ring
+is sharded as the JAX package's is: each rank holds ``buffer_size / n``
+episodes, the global slots whose envs it steps (``RingLayout`` with period
+``batch_size_run``), so a block rolls out this rank's shard of the envs from
+the global draws, writes its episodes into its own ring and gathers only
+the block's stats (one ``all_gather``). The sample slots are drawn at the
+global shape on every rank alike; one ``reduce_scatter`` (``gather_sample``)
+hands each rank its shard of the sample, each rank trains on it with the
+global mask count (one ``all_reduce`` of the block's counts), and each
+update sums the gradients and the metrics over the ranks (one
+``all_reduce``). ``buffer_index`` and ``episodes_in_buffer`` stay global.
+On CUDA the collectives are captured into the graphs with the rest of the
+block (NCCL); the mesh counts them beside the kernels' launches.
 
 The kernel wrappers count launches in Python, which a replay does not run:
 ``graphs[kind].launches`` holds what the capture recorded (the wrappers'
@@ -56,6 +61,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import RingLayout
 from .buffer import storage_dtype
 
 
@@ -63,16 +69,18 @@ from .buffer import storage_dtype
 class PipelineState:
     """The pipeline's state: ``train`` is the learner, whose parameters,
     targets and optimiser state the blocks update in place; the counters
-    are int32 0-d tensors on the device."""
+    are int32 0-d tensors on the device. Under a data mesh ``ring`` holds
+    this rank's ``buffer_size / n`` episodes, laid out by ``layout``."""
 
     train: Any
-    ring: Dict[str, torch.Tensor]  # {key: (buffer_size, T+1, ...)}
+    ring: Dict[str, torch.Tensor]  # {key: (buffer_size / n, T+1, ...)}
     buffer_index: torch.Tensor
     episodes_in_buffer: torch.Tensor
     t_env: torch.Tensor
     episode: torch.Tensor
     last_target_episode: torch.Tensor
     generators: Dict[str, torch.Generator]  # rollout, sample, learner
+    layout: Optional[RingLayout] = None  # the ring's sharding (None: one process)
 
 
 @dataclasses.dataclass
@@ -87,11 +95,16 @@ class CapturedBlock:
     instantiate_seconds: float
     pool_bytes: int  # device memory the capture reserved (the graph's pool)
     replays: int = 0
+    # a mesh's: the bytes this rank hands to each kind of collective a replay
+    collective_bytes: Optional[Dict[str, int]] = None
 
     def summary(self) -> Dict[str, Any]:
-        return {"replays": self.replays, "launches": dict(self.launches),
-                "capture_seconds": self.capture_seconds,
-                "instantiate_seconds": self.instantiate_seconds, "pool_bytes": self.pool_bytes}
+        out = {"replays": self.replays, "launches": dict(self.launches),
+               "capture_seconds": self.capture_seconds,
+               "instantiate_seconds": self.instantiate_seconds, "pool_bytes": self.pool_bytes}
+        if self.collective_bytes is not None:
+            out["collective_bytes"] = dict(self.collective_bytes)
+        return out
 
 
 def launch_counts(mesh=None) -> Dict[str, int]:
@@ -129,10 +142,13 @@ class FusedPipeline:
         self.buffer_dtype = str(getattr(args, "buffer_dtype", "float32"))
         if self.buffer_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"buffer_dtype must be float32 or bfloat16, not {self.buffer_dtype!r}")
+        self.layout = None
         if mesh is not None:
             mesh.check_divisible(self.batch_size_run, "batch_size_run")
             mesh.check_divisible(self.batch_size, "batch_size")
             mesh.check_divisible(self.buffer_size, "buffer_size")
+            self.layout = mesh.ring_layout(self.buffer_size, self.batch_size_run)
+        self.n_data = 1 if mesh is None else mesh.n_data
         self.training_iters = int(args.training_iters)
         self.target_update_interval = int(args.target_update_interval)
         self.gt_diag = bool(getattr(args, "test_gt_factors", False)) and learner.has_gt_diagnostics
@@ -145,16 +161,18 @@ class FusedPipeline:
         self._layout: Dict[str, list] = {}
         self._dtypes: Dict[str, torch.dtype] = {}
         self._slots = torch.arange(self.buffer_size, device=self.device)
-        self._block_slots = torch.arange(self.batch_size_run, device=self.device)
+        # this rank's slots of a block's insert, from buffer_index / n
+        self._block_slots = torch.arange(self.batch_size_run // self.n_data, device=self.device)
 
     # ------------------------------------------------------------------
     def init_state(self, sample_generator: torch.Generator, t_env: int = 0,
                    episode: int = 0) -> PipelineState:
         """Allocates the ring once, from the shapes of one rollout
-        (``VectorRunner.batch_spec``), each plane in its storage dtype."""
+        (``VectorRunner.batch_spec``), each plane in its storage dtype: under
+        a mesh this rank's ``buffer_size / n`` episodes."""
         spec = self.runner.batch_spec()
         self._dtypes = {k: dt for k, (_, dt) in spec.items()}
-        ring = {k: torch.zeros((self.buffer_size,) + shape,
+        ring = {k: torch.zeros((self.buffer_size // self.n_data,) + shape,
                                dtype=storage_dtype(k, dt, self.buffer_dtype), device=self.device)
                 for k, (shape, dt) in spec.items()}
 
@@ -165,7 +183,7 @@ class FusedPipeline:
             train=self.learner, ring=ring, buffer_index=i32(0), episodes_in_buffer=i32(0),
             t_env=i32(t_env), episode=i32(episode), last_target_episode=i32(episode),
             generators={"rollout": self.runner.generator, "sample": sample_generator,
-                        "learner": self.learner.generator})
+                        "learner": self.learner.generator}, layout=self.layout)
 
     def sample_idx(self, episodes_in_buffer: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -181,8 +199,10 @@ class FusedPipeline:
     def _block_impl(self, ps: PipelineState, train: bool) -> Dict[str, Any]:
         B = self.batch_size_run
         epsilon = self.runner.schedule.eval(ps.t_env.float())
-        batch, roll = self.runner.rollout(epsilon, B, shard=self.mesh)
-        slots = ps.buffer_index.long() + self._block_slots
+        batch, roll = self.runner.rollout(epsilon, B, shard=self.mesh, gather_episodes=False)
+        # buffer_index is a multiple of B: this rank's B / n slots of the
+        # block sit at buffer_index / n in its ring (RingLayout)
+        slots = ps.buffer_index.long() // self.n_data + self._block_slots
         for k, buf in ps.ring.items():
             buf.index_copy_(0, slots, batch[k].to(buf.dtype))
         ps.buffer_index.copy_((ps.buffer_index + B) % self.buffer_size)
@@ -198,16 +218,21 @@ class FusedPipeline:
                    ) -> Dict[str, torch.Tensor]:
         """A train block after its insert: sample, gather, updates, gt
         diagnostics, target sync; returns the metrics. ``draws`` (tests)
-        injects {"idx": slots, "imagine": per-update draws, "diag": draws}."""
+        injects {"idx": slots, "imagine": per-update draws, "diag": draws}.
+        Under a mesh the sample is this rank's shard of the global one."""
         draws = draws or {}
         idx = draws.get("idx")
         if idx is None:
             idx = self.sample_idx(ps.episodes_in_buffer, ps.generators["sample"])
-        samples = {k: buf[idx].to(self._dtypes[k]) for k, buf in ps.ring.items()}
+        if self.mesh is None:
+            samples = {k: buf[idx] for k, buf in ps.ring.items()}
+        else:
+            samples = self.mesh.gather_sample(ps.ring, idx, ps.layout)
+        samples = {k: v.to(self._dtypes[k]) for k, v in samples.items()}
         metrics = self.learner.updates(samples, draws.get("imagine"), mesh=self.mesh)
         if self.gt_diag:
             last = {k: v[-1] for k, v in samples.items()}
-            metrics.update(self.learner.gt_diagnostics(last, draws.get("diag")))
+            metrics.update(self.learner.gt_diagnostics(last, draws.get("diag"), mesh=self.mesh))
         # hard target sync on the pre-increment episode counter
         do_sync = (ps.episode - ps.last_target_episode) >= self.target_update_interval
         self.learner.sync_targets_where(do_sync)
@@ -257,6 +282,7 @@ class FusedPipeline:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts(self.mesh)
+        moved = None if self.mesh is None else dict(self.mesh.payload_bytes)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in ps.generators.values():
             graph.register_generator_state(gen)
@@ -274,7 +300,9 @@ class FusedPipeline:
         rec = CapturedBlock(graph=graph, out=out, state=ps,
                             launches={k: after[k] - before[k] for k in after},
                             capture_seconds=t1 - t0, instantiate_seconds=t2 - t1,
-                            pool_bytes=torch.cuda.memory_reserved(self.device) - reserved)
+                            pool_bytes=torch.cuda.memory_reserved(self.device) - reserved,
+                            collective_bytes=None if moved is None else {
+                                k: v - moved[k] for k, v in self.mesh.payload_bytes.items()})
         self.setup_seconds += t2 - t0
         self.graphs[kind] = rec
         return rec

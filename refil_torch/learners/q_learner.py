@@ -238,11 +238,19 @@ class QLearner:
         the JAX learner). Returns the last update's metrics.
         ``imagine_draws[i]`` = (group_probs, groupA) for update i (tests).
 
-        With ``mesh`` (a ``parallel.mesh.MeshContext``), ``batches`` is the
-        global sample, alike on every rank: each update trains on this rank's
-        slice with the global mask count, REFIL's imagined groups drawn at the
-        global shape and sliced, and the mesh's all_reduce in ``train_step``."""
+        With ``mesh`` (a ``parallel.mesh.MeshContext``), ``batches`` is this
+        rank's shard of the global sample (``MeshContext.gather_sample``):
+        each update trains on it with the global mask count (one all_reduce
+        of the block's per-update counts), REFIL's imagined groups drawn at
+        the global shape and sliced (``imagine_draws`` too are global), and
+        the mesh's all_reduce in ``train_step``."""
         n_iters = next(iter(batches.values())).shape[0]
+        mask_elems = None
+        if mesh is not None:
+            filled, term = batches["filled"], batches["terminated"]
+            mask_elems = self.td_mask(filled.flatten(0, 1),
+                                      term.flatten(0, 1)[:, :-1].float())
+            mask_elems = mesh.all_reduce_(mask_elems.reshape(n_iters, -1).sum(dim=1))
         metrics = {}
         for i in range(n_iters):
             batch = {k: v[i] for k, v in batches.items()}
@@ -253,13 +261,11 @@ class QLearner:
             if draws is None and self.is_imagine and not getattr(
                     self.args, "train_gt_factors", False):
                 entity_mask = batch["entity_mask"]
-                draws = draw_imagine_groups(entity_mask.shape[0], entity_mask.shape[-1],
-                                            self.generator, entity_mask.device)
-            metrics = self.train_step(
-                mesh.shard(batch), None if draws is None else mesh.shard(draws),
-                mask_elems=self.td_mask(batch["filled"],
-                                        batch["terminated"][:, :-1].float()).sum(),
-                reduce=mesh.all_reduce_)
+                draws = draw_imagine_groups(entity_mask.shape[0] * mesh.n_data,
+                                            entity_mask.shape[-1], self.generator,
+                                            entity_mask.device)
+            metrics = self.train_step(batch, None if draws is None else mesh.shard(draws),
+                                      mask_elems=mask_elems[i], reduce=mesh.all_reduce_)
         return metrics
 
     def train_iters(self, batches, t_env: int, episode_num: int,
@@ -295,14 +301,26 @@ class QLearner:
         return isinstance(self.mixer, LinearFlexQMixer) and self.is_imagine
 
     @torch.no_grad()
-    def gt_diagnostics(self, batch, imagine_draws=None):
+    def gt_diagnostics(self, batch, imagine_draws=None, mesh=None):
         """(ingroup_prop, gt_ingroup_prop) for imagine agents with the linear
-        mixer (Group Matching, ``test_gt_factors``); None otherwise."""
+        mixer (Group Matching, ``test_gt_factors``); None otherwise. With
+        ``mesh``, ``batch`` is this rank's shard of the global one: the
+        groups are drawn at the global shape and sliced, and each rank's
+        sums over the global row count are added up (one all_reduce), so
+        the values are the global batch's."""
         if not self.has_gt_diagnostics:
             return None
         mac = self.mac
         rep_actions = torch.cat([batch["actions"][:, :-1]] * 3, dim=0)
         m_ents, _, m_em, _ = mac.build_episode_inputs(batch)
+        rows = None
+        if mesh is not None:
+            em = batch["entity_mask"]
+            if imagine_draws is None:
+                imagine_draws = draw_imagine_groups(em.shape[0] * mesh.n_data, em.shape[-1],
+                                                    self.generator, em.device)
+            imagine_draws = mesh.shard(imagine_draws)
+            rows = em.shape[0] * mesh.n_data * (em.shape[1] - 1)
         out = {}
         for tag, kw in (("ingroup_prop", {}), ("gt_ingroup_prop", {"use_gt_factors": True})):
             all_q, groups = mac.forward_episode(batch, imagine=True, generator=self.generator,
@@ -310,6 +328,9 @@ class QLearner:
             _, caqW, caqI = _gather(all_q[:, :-1], rep_actions).chunk(3, dim=0)
             g = tuple(gr[:, :-1] for gr in groups)
             _, prop = self.mixer(torch.cat([caqW, caqI], dim=2), m_ents[:, :-1], m_em[:, :-1],
-                                 imagine_groups=g, ret_ingroup_prop=True)
+                                 imagine_groups=g, ret_ingroup_prop=True, ingroup_rows=rows)
             out[tag] = prop
+        if mesh is not None:
+            props = mesh.all_reduce_(torch.stack([out[k].float() for k in out]))
+            out = dict(zip(out, props))
         return out

@@ -130,7 +130,7 @@ class LinearFlexQMixer(nn.Module):
         self.V = AttentionHyperNet(mode="scalar", **kw)
 
     def forward(self, agent_qs, entities, entity_mask, imagine_groups=None,
-                ret_ingroup_prop=False):
+                ret_ingroup_prop=False, ingroup_rows=None):
         B, T, Ne, D = entities.shape
         if self.dtype is not None:
             entities = entities.to(self.dtype)
@@ -152,11 +152,13 @@ class LinearFlexQMixer(nn.Module):
 
         q_tot = ((qs * w1).sum(dim=1) + v).reshape(B, T, 1).float()
         if ret_ingroup_prop:
-            # mean share of mixing weight on the in-group Qs
+            # mean share of mixing weight on the in-group Qs; over
+            # ``ingroup_rows`` rows where this batch is a shard of them
             ingroup_w = w1.clone()
             if imagine_groups is not None:
                 ingroup_w[:, self.n_agents:] = 0.0
-            return q_tot, ingroup_w.sum(dim=1).mean()
+            share = ingroup_w.sum(dim=1)
+            return q_tot, share.mean() if ingroup_rows is None else share.sum() / ingroup_rows
         return q_tot
 
 

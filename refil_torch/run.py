@@ -43,10 +43,13 @@ scripted ally policy (``VectorRunner``).
 Multi-process data parallelism (``parallel/mesh.py``): ``distributed=True``
 joins a process group before any device access, one process per device;
 ``mesh_shape`` must equal the world size. Both loops then shard each
-training rollout over the ranks and all-reduce each update's gradients;
-test rollouts and eval run whole on every rank; rank 0 alone writes logs,
-TensorBoard and checkpoints, and the ranks agree on a preemption at each
-dispatch or block boundary.
+training rollout and the replay ring over the ranks (``buffer_size / n``
+episodes a rank), hand each rank its shard of every sample in one exchange
+and all-reduce each update's gradients; test rollouts and eval run whole on
+every rank; rank 0 alone writes logs, TensorBoard and checkpoints (a
+checkpoint's ring gathered to it in global slot order, so it resumes at any
+world size the sizes divide over), and the ranks agree on a preemption at
+each dispatch or block boundary.
 
 Device: ``use_cuda`` (default True) runs on the CUDA card (a rank's card
 under ``distributed``) and raises where there is none; ``use_cuda=False``
@@ -233,15 +236,16 @@ def _copy_into(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
     dst.copy_(src.to(dst.dtype))
 
 
-def _save_checkpoint(path: str, learner, pstate=None, include_buffer: bool = False
-                     ) -> Dict[str, Any]:
+def _save_checkpoint(path: str, learner, pstate=None, include_buffer: bool = False,
+                     ring=None) -> Dict[str, Any]:
     """Writes ``path/state.pt``: the learner's parameters, targets and
     RMSprop state by parameter name; with ``pstate`` (a ``PipelineState``)
-    also its counters and generator states, and, behind ``include_buffer``
-    (about 2.5 GB for the combat ring of 5000 episodes of 151 steps), the
-    ring, each plane one device-to-host copy. The write goes to a tmp file
-    that is then renamed, so a crash mid-save leaves no truncated
-    checkpoint. Returns the file's bytes and the seconds the save took."""
+    also its counters and generator states, and, behind ``include_buffer``,
+    the ring: ``ring`` where given (the whole ring on the host, in global
+    slot order, which a sharded ring's ``_host_ring`` gathers), else a copy
+    of this process's ring. The write goes to a tmp file that is then
+    renamed, so a crash mid-save leaves no truncated checkpoint. Returns the
+    file's bytes and the seconds the save took."""
     t0 = time.perf_counter()
     names = learner.param_names()
     opt = learner.optimiser.state
@@ -255,7 +259,9 @@ def _save_checkpoint(path: str, learner, pstate=None, include_buffer: bool = Fal
         pipe: Dict[str, Any] = {k: int(getattr(pstate, k)) for k in PIPELINE_COUNTERS}
         pipe["generators"] = {k: g.get_state() for k, g in pstate.generators.items()}
         if include_buffer:
-            pipe["ring"] = {k: v.cpu() for k, v in pstate.ring.items()}
+            if ring is None and pstate.layout is not None:
+                raise ValueError("a sharded ring is saved gathered (_save_on_main)")
+            pipe["ring"] = ring if ring is not None else _host_ring(pstate, None)[0]
         blob["pipeline"] = pipe
     os.makedirs(path, exist_ok=True)
     tmp = join(path, STATE_FILE + ".tmp")
@@ -300,7 +306,9 @@ def restore_pipeline_state(ps, payload: Dict[str, Any]) -> None:
     generators always restore; the ring, cast to the run's ``buffer_dtype``,
     with its fill counters only where it was saved (``checkpoint_buffer``):
     otherwise the fresh ring keeps its zero fill counters, so sampling never
-    sees unwritten slots."""
+    sees unwritten slots. The saved ring is global, in slot order; under a
+    mesh each rank copies the slots it holds (``ps.layout``), so a ring saved
+    at one world size restores at another."""
     for k in ("t_env", "episode", "last_target_episode"):
         getattr(ps, k).fill_(int(payload[k]))
     for k, g in ps.generators.items():
@@ -309,9 +317,16 @@ def restore_pipeline_state(ps, payload: Dict[str, Any]) -> None:
     if ring is not None:
         if set(ring) != set(ps.ring):
             raise KeyError(f"checkpoint ring planes {sorted(ring)} != {sorted(ps.ring)}")
+        held = None if ps.layout is None else ps.layout.held_slots()
         with torch.no_grad():
             for k, buf in ps.ring.items():
-                _copy_into(buf, ring[k], "ring " + k)
+                src = ring[k]
+                if held is not None:
+                    if src.shape[0] != ps.layout.size:
+                        raise ValueError(f"checkpoint ring {k}: {src.shape[0]} episodes, the "
+                                         f"run's ring holds {ps.layout.size}")
+                    src = src[held]
+                _copy_into(buf, src, "ring " + k)
         ps.buffer_index.fill_(int(payload["buffer_index"]))
         ps.episodes_in_buffer.fill_(int(payload["episodes_in_buffer"]))
 
@@ -346,11 +361,29 @@ def _model_path(args, t_env: int) -> str:
     return join(args.local_results_path, "models", args.unique_token, str(t_env))
 
 
-def _save_on_main(mesh, path: str, learner, **kwargs) -> Optional[Dict[str, Any]]:
+def _host_ring(pstate, mesh) -> Tuple[Optional[Dict[str, torch.Tensor]], int]:
+    """The whole ring on the host in global slot order (on rank 0; None on
+    the others), and the device bytes its gather took on top of the ring
+    (0 in one process: each plane one device-to-host copy). About 2.5 GB
+    for the combat ring of 5000 episodes of 151 steps."""
+    if mesh is None:
+        return {k: v.cpu() for k, v in pstate.ring.items()}, 0
+    return mesh.gather_ring(pstate.ring, pstate.layout)
+
+
+def _save_on_main(mesh, path: str, learner, pstate=None, include_buffer: bool = False
+                  ) -> Optional[Dict[str, Any]]:
     """``_save_checkpoint`` on rank 0 (or the only process), then a barrier,
-    so no rank runs on before the checkpoint is on disk. None on the other
-    ranks."""
-    info = _save_checkpoint(path, learner, **kwargs) if _is_main() else None
+    so no rank runs on before the checkpoint is on disk. With
+    ``include_buffer`` every rank first joins the ring's gather to rank 0
+    (``_host_ring``). None on the other ranks."""
+    ring, gather_bytes = None, 0
+    if pstate is not None and include_buffer:
+        ring, gather_bytes = _host_ring(pstate, mesh)
+    info = (_save_checkpoint(path, learner, pstate=pstate, include_buffer=ring is not None,
+                             ring=ring) if _is_main() else None)
+    if info is not None and ring is not None:
+        info["ring_gather_bytes"] = gather_bytes
     if mesh is not None:
         mesh.barrier()
     return info
@@ -441,7 +474,8 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
     stat, the checkpoints written and loaded, whether a SIGTERM stopped the
     run, and for the fused loop its graphs and dispatches (each also with
     the seconds and env steps of its graph replays alone), its test
-    rollouts (t_env, width, seconds) and its ring's bytes."""
+    rollouts (t_env, width, seconds); for both, this rank's ring's bytes and
+    episodes, and the bytes of the whole ring over the ranks."""
     runner, learner, gens = build_training(args, logger, device)
     log = logger.console_logger
     mesh = runner.mesh = maybe_make_mesh(args, device, log)
@@ -511,8 +545,9 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=N
     """The classic loop (``refil_tpu/run.py:411-503``). Its checkpoints hold
     the learner only, as the JAX package's do: a resume refills the ring.
     Under a data mesh each training rollout is sharded and gathered
-    (``VectorRunner.run``), the ring and its host sampler are alike on every
-    rank, and each update trains on this rank's slice of the sample."""
+    (``VectorRunner.run``), each rank's ring holds its chunk of the slots and
+    its host sampler draws the global slots alike on every rank, and each
+    update trains on this rank's shard of the sample."""
     log = logger.console_logger
     buffer_device = torch.device("cpu") if getattr(args, "buffer_cpu_only", False) else device
     buffer = None
@@ -535,7 +570,8 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=N
         if buffer is None:
             buffer = ReplayBuffer(episode_batch, args.buffer_size, seed=args.seed,
                                   device=buffer_device,
-                                  feature_dtype=getattr(args, "buffer_dtype", "float32"))
+                                  feature_dtype=getattr(args, "buffer_dtype", "float32"),
+                                  mesh=mesh)
         buffer.insert_episode_batch(episode_batch)
         counts["blocks"] += 1
 
@@ -560,7 +596,7 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=N
                 logger.log_stat(k, v, runner.t_env)
             if getattr(args, "test_gt_factors", False):
                 last_sample = {k: v[-1] for k, v in samples.items()}
-                diag = learner.gt_diagnostics(last_sample)
+                diag = learner.gt_diagnostics(last_sample, mesh=mesh)
                 if diag:
                     counts["diag_calls"] += 1
                     for k, v in diag.items():
@@ -600,9 +636,14 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=N
             log.info("Preempted at t_env=%d: checkpoint written to %s", runner.t_env, path)
             break
 
+    # this rank's ring (under a mesh 1/n of the world's), bytes and episodes
+    ring_bytes = 0 if buffer is None else sum(v.numel() * v.element_size()
+                                              for v in buffer.data.values())
     return {**counts, "episodes": cadence["episode"], "train_seconds": train_seconds,
             "train_steps": train_steps, "last_metrics": last_metrics, "saves": saves,
-            "preempted": preempted}
+            "preempted": preempted, "ring_bytes": ring_bytes,
+            "ring_bytes_world": ring_bytes * (1 if mesh is None else mesh.n_data),
+            "ring_episodes": 0 if buffer is None else next(iter(buffer.data.values())).shape[0]}
 
 
 def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
@@ -740,8 +781,11 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
 
     if pipeline.graphs:
         log.info("CUDA graphs: %s", {k: g.summary() for k, g in pipeline.graphs.items()})
+    # this rank's ring (under a mesh 1/n of the world's), bytes and episodes
+    ring_bytes = sum(v.numel() * v.element_size() for v in ps.ring.values())
     return {**counts, "episodes": cadence["episode"], "train_seconds": train_seconds,
             "train_steps": train_steps, "last_metrics": last_metrics, "dispatches": dispatches,
             "graphs": {k: g.summary() for k, g in pipeline.graphs.items()}, "saves": saves,
             "preempted": preempted, "tests": tests,
-            "ring_bytes": sum(v.numel() * v.element_size() for v in ps.ring.values())}
+            "ring_bytes": ring_bytes, "ring_bytes_world": ring_bytes * pipeline.n_data,
+            "ring_episodes": next(iter(ps.ring.values())).shape[0]}

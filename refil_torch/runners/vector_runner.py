@@ -95,7 +95,7 @@ class VectorRunner:
     def rollout(self, epsilon: Union[float, torch.Tensor], batch_size: int, test: bool = False,
                 env_draws: Optional[dict] = None, index: Optional[int] = None,
                 generator: Optional[torch.Generator] = None, record: bool = False,
-                shard=None):
+                shard=None, gather_episodes: bool = True):
         """One block of ``batch_size`` episodes; ``epsilon`` a float or a 0-d
         tensor on the device; ``index`` (>= 0) fixes every env's scenario.
         ``env_draws`` = {"reset": draws, "step": [draws per step]} feeds the
@@ -107,9 +107,11 @@ class VectorRunner:
 
         ``shard`` (a ``parallel.mesh.MeshContext``): ``batch_size`` is the
         global block; this rank steps its ``batch_size / n`` envs, every draw
-        made at the global shape and sliced, and the ranks' batches and stats
-        are then gathered, rank by rank, so every rank returns the block one
-        process stepping all of it would."""
+        made at the global shape and sliced, and the ranks' stats are then
+        gathered, rank by rank, so every rank returns the block's stats one
+        process stepping all of it would; so is the episode batch with
+        ``gather_episodes`` (the classic loop's ring), else each rank keeps
+        its own ``batch_size / n`` episodes (the fused loop's sharded ring)."""
         env, mac = self.env, self.mac
         gen = self.generator if generator is None else generator
         T = self.episode_limit
@@ -190,8 +192,10 @@ class VectorRunner:
             filled=filled,
         )
         stats = {"ep_returns": ep_ret, "ep_lengths": ep_len, "final_info": final_info}
-        if shard is not None:
+        if shard is not None and gather_episodes:
             batch, stats = shard.gather_batch((batch, stats))
+        elif shard is not None:
+            stats = shard.gather_batch(stats)
         if record:
             stats["render"] = frames
         return batch, stats

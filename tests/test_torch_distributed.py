@@ -6,10 +6,12 @@ the CPU, over gloo, each rank a subprocess with a timeout of its own.
   one process over 3 fused train blocks after the warm-up, on Group
   Matching's REFIL and on a tiny combat REFIL (whose imagined groups each
   rank slices from the global draws): every metric within rtol 2e-4,
-  atol 1e-6, ``t_env`` exact, parameters equal bit for bit on both ranks.
+  atol 1e-6, ``t_env`` exact, parameters equal bit for bit on both ranks,
+  each rank's ring its slots of the one-process ring bit for bit.
 * The same through the CLI (``distributed=True``), in the fused and the
   classic loop: rank 0's logged losses against one process's, as
-  ``tests/test_cli_mesh.py`` checks the JAX mesh.
+  ``tests/test_cli_mesh.py`` checks the JAX mesh, and each rank's replay
+  ring half of the one process's.
 * A SIGTERM to one rank stops both at the same boundary, with a checkpoint,
   and a resume from it logs the unbroken two-process run's losses.
 * ``mesh_shape`` other than the world size raises, sizes that do not divide
@@ -54,28 +56,41 @@ def test_sharded_equals_unsharded(config):
     out = gate.assert_sharded_equals_unsharded(2, n_blocks=3, config=config, timeout=120)
     assert [r["t_env"] for r in out["sharded"]] == [r["t_env"] for r in out["single"]]
     assert len(out["sharded"]) == 3 and all(np.isfinite(r["loss"]) for r in out["sharded"])
+    assert out["ring_bytes"] == [out["single_ring_bytes"] // 2] * 2
+    if config == "group_matching":  # the gt diagnostics are among the compared metrics
+        assert {"ingroup_prop", "gt_ingroup_prop"} <= set(out["sharded"][0])
 
 
-def _losses(results_dir):
+def _losses(results_dir, key="loss"):
     rows = []
     for fn in glob.glob(os.path.join(results_dir, "metrics", "*.jsonl")):
         with open(fn) as f:
             rows += [json.loads(line) for line in f if line.endswith("\n")]
-    return [(r["t"], r["value"]) for r in rows if r["key"] == "loss"]
+    return [(r["t"], r["value"]) for r in rows if r["key"] == key]
 
 
 @pytest.mark.parametrize("loop", ["fused", "classic"])
 def test_cli_two_ranks_equal_one_process(tmp_path, loop):
     extra = [] if loop == "fused" else ["use_fused_pipeline=False"]
     gate.run_ranks(gate.cli_rank_commands(2, GM + extra + [
-        f"local_results_path={tmp_path / 'two'}"]) + [[
-            sys.executable, "-m", "refil_torch.main", *GM, *extra,
+        f"local_results_path={tmp_path / 'two'}"], summary_dir=str(tmp_path)) + [[
+            *gate.cli_command(str(tmp_path / "one.json")), *GM, *extra,
             f"local_results_path={tmp_path / 'one'}"]], timeout=120)
-    two, one = _losses(str(tmp_path / "two")), _losses(str(tmp_path / "one"))
     # rank 0 alone writes the metrics
     assert len(os.listdir(tmp_path / "two" / "metrics")) == 1
-    assert two and [t for t, _ in two] == [t for t, _ in one]
-    np.testing.assert_allclose([v for _, v in two], [v for _, v in one], rtol=2e-4, atol=1e-6)
+    # the losses, and the gt diagnostics over each rank's shard of the sample
+    for key in ("loss", "ingroup_prop", "gt_ingroup_prop"):
+        two, one = (_losses(str(tmp_path / d), key) for d in ("two", "one"))
+        assert two and [t for t, _ in two] == [t for t, _ in one], key
+        np.testing.assert_allclose([v for _, v in two], [v for _, v in one], rtol=2e-4,
+                                   atol=1e-6, err_msg=key)
+    # each rank holds half of the one-process ring (buffer_size / 2 episodes)
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    single = json.load(open(tmp_path / "one.json"))
+    assert single["loop"] == loop and single["ring_bytes"] > 0 and single["ring_episodes"] == 16
+    for s in ranks:
+        assert s["loop"] == loop and s["world_size"] == 2 and s["ring_episodes"] == 8
+        assert 2 * s["ring_bytes"] == s["ring_bytes_world"] == single["ring_bytes"]
 
 
 def _spawn_pair(tmp_path, tag, extra):
