@@ -136,6 +136,8 @@ is not available or the ``refil_torch`` package is not beside it.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
 import math
 import os
@@ -524,6 +526,31 @@ def phase_build(attn_rows, gru_rows):
     return built
 
 
+def phase_sass(built):
+    """The built attention library's machine code (``cuobjdump -sass``):
+    every instance of the tensor-core product (``gemm_kernel_tc``) runs
+    warpgroup MMAs (``HGMMA``), and no FMA instance (``gemm_kernel``) does."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", built["entity_attn"].path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    hgmma = {}  # function -> HGMMA instructions in it
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            hgmma[name] = 0
+        elif name is not None and "HGMMA" in line:
+            hgmma[name] += 1
+    tc = {n: c for n, c in hgmma.items() if "gemm_kernel_tc" in n}
+    fma = {n: c for n, c in hgmma.items() if "gemm_kernel" in n and n not in tc}
+    ok = bool(tc) and bool(fma) and all(tc.values()) and not any(fma.values())
+    emit("sass", ok=ok, library=os.path.basename(built["entity_attn"].path),
+         tensor_core_instances=tc, fma_instances=fma,
+         others_with_hgmma=[n for n, c in hgmma.items() if c and n not in tc])
+    if not ok:
+        raise AssertionError("the bfloat16 product instances lack HGMMA, or an FMA one has it")
+
+
 def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, seed=0,
                timing=False, path=None, masks=None):
     from refil_torch.ops import entity_attn
@@ -606,6 +633,21 @@ def check_case(tag, Bp, Ne, Nq, D, E, O, H, dtype, pre=True, mask_rows=None, see
     return row
 
 
+def gemm_instance(ta, tb, M, N, chunks):
+    """The instance of csrc/gemm.cuh a product takes: two bfloat16 operands
+    the tensor cores (with the tile ``gemm::tc::tile_of`` picks), any
+    other the f32 FMA one."""
+    from refil_torch.ops import entity_attn as ea
+
+    if not ta == tb == torch.bfloat16:
+        return "fma_f32"
+    rows, cols = ctypes.c_int(), ctypes.c_int()
+    lib = ea._lib()
+    ea._check(lib, lib.entity_attn_gemm_tile(M, N, chunks, torch.cuda.current_device(),
+                                             ctypes.byref(rows), ctypes.byref(cols)), "tile")
+    return f"wgmma_bf16_{rows.value}x{cols.value}"
+
+
 def check_gemm(tag, ta, tb, ka, M, N, K, a_map=(1, 1), c_map=(1, 1), add=False,
                rnd=False, chunks=1, pad=0, seed=0, timing=False, tc=torch.float32,
                epilogue=False):
@@ -617,7 +659,10 @@ def check_gemm(tag, ta, tb, ka, M, N, K, a_map=(1, 1), c_map=(1, 1), add=False,
     product must not touch is held too; ``epilogue``: a random bias and
     dropped rows, as the forward's output product has. f32 sums within 1e-5
     of the output's scale where K <= 1024, 1e-4 for the tall K of the weight
-    gradients; 2e-2 where the output is rounded to bfloat16."""
+    gradients (bfloat16 operands, on the tensor cores, too: their products
+    are exact in f32 and only the order of the f32 sum differs); 2e-2 where
+    the output is rounded to bfloat16. A second call into a copy of the
+    same output buffer must give the same bits."""
     from refil_torch.ops import entity_attn as ea
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -635,20 +680,24 @@ def check_gemm(tag, ta, tb, ka, M, N, K, a_map=(1, 1), c_map=(1, 1), add=False,
     chunk_stride = c0.flat.numel() if chunks > 1 else 0
     c_flat = torch.randn((c0.flat.numel() * chunks,), generator=g, device="cuda").to(tc)
     c_k = c0._replace(flat=c_flat.clone())
+    c_k2 = c0._replace(flat=c_flat.clone())
     c_p = c0._replace(flat=c_flat.clone())
     kw = dict(add=add, round_bf16=rnd, chunks=chunks, chunk_stride=chunk_stride)
     if epilogue:
         kw["bias"] = torch.randn((N,), generator=g, device="cuda").to(tc)
         kw["drop"] = torch.rand((M,), generator=g, device="cuda") < 0.1
     ea.gemm(a, b, c_k, M, N, K, ka, **kw)
+    ea.gemm(a, b, c_k2, M, N, K, ka, **kw)
     ea.plain_gemm(a, b, c_p, M, N, K, ka, **kw)
     torch.cuda.synchronize()
     err = scaled_err(c_k.flat, c_p.flat)
+    same_bits = torch.equal(c_k.flat, c_k2.flat)
     tol = 2e-2 if rnd or tc == torch.bfloat16 else (1e-5 if K <= 1024 else 1e-4)
     row = dict(kernel="entity_attn_gemm", case=tag, A=str(ta).replace("torch.", ""),
                B=str(tb).replace("torch.", ""), C=str(tc).replace("torch.", ""), ka=ka, M=M,
                N=N, K=K, a_map=a_map, c_map=c_map, add=add, round_bf16=rnd, chunks=chunks,
-               pad=pad, epilogue=epilogue, scaled_err=err, tol=tol)
+               pad=pad, epilogue=epilogue, instance=gemm_instance(ta, tb, M, N, chunks),
+               scaled_err=err, tol=tol, two_calls_same_bits=same_bits)
     if timing:
         ms = cuda_time_ms(lambda: ea.gemm(a, b, c_k, M, N, K, ka, **kw))
         A = a.flat.view(-1, a.ld)[:, :K] if ka else a.flat.view(-1, a.ld)[:, :M].T
@@ -656,51 +705,64 @@ def check_gemm(tag, ta, tb, ka, M, N, K, a_map=(1, 1), c_map=(1, 1), add=False,
         row["ms"] = ms
         row["tflops"] = 2.0 * M * N * K / ms / 1e9
         row["library_ms"] = cuda_time_ms(lambda: torch.matmul(A, B))  # cuBLAS, yardstick
-    emit("kernels_check", ok=err <= tol, **row)
-    if not err <= tol:
-        raise AssertionError(f"gemm disagrees with its plain version: {tag}")
+    emit("kernels_check", ok=err <= tol and same_bits, **row)
+    if not (err <= tol and same_bits):
+        raise AssertionError(f"gemm disagrees with its plain version or itself: {tag}")
     return row
 
 
 def phase_gemm():
     """The product at each of the forward's and the backward's shapes for
     the combat target agent's call (Bp 4,832, Ne 16, Nq 8, widths 128), in
-    the layouts, types, row maps and epilogues they give it, at a Group
-    Matching shape that takes 64-row tiles, then ragged M, N, K (32- and
-    64-row tiles)."""
+    the layouts, types, row maps and epilogues they give it: in float32 on
+    the FMA instance, in bfloat16 (every operand a bfloat16 plane) on the
+    tensor cores; at a Group Matching shape that takes 64-row tiles; then
+    ragged M, N, K and unaligned rows (32- and 64-row tiles). In bfloat16
+    also every N the attention's products take (64 to 384; k-contiguous A,
+    K 128, and m-contiguous A, tall K in split-K chunks) at full and
+    ragged M. Each call twice, for the same bits."""
     f32, b16 = torch.float32, torch.bfloat16
     Bp, Ne, Nq, W = 4832, 16, 8, 128
     re_, rq, sel = Bp * Ne, Bp * Nq, (Nq, Ne)
     for T in (f32, b16):
         rnd = T == b16
-        shapes = [  # tag, ta, tb, ka, M, N, K, a_map, c_map, add, rnd, chunks
-            ("kv", T, T, True, re_, 2 * W, W, (1, 1), (1, 1), False, rnd, 1),
-            ("q", T, T, True, rq, W, W, sel, (1, 1), False, rnd, 1),
-            ("dattn", T, T, True, rq, W, W, (1, 1), (1, 1), False, False, 1),
-            ("dents_kv", f32, T, True, re_, W, 2 * W, (1, 1), (1, 1), False, False, 1),
-            ("dents_q", f32, T, True, rq, W, W, (1, 1), sel, True, False, 1),
-            ("dw_kv", T, f32, False, W, 2 * W, re_, (1, 1), (1, 1), False, False, 264),
-            ("dw_q", T, f32, False, W, W, rq, sel, (1, 1), False, False, 264),
-            ("dw_o", f32, f32, False, W, W, rq, (1, 1), (1, 1), False, False, 264),
+        shapes = [  # tag, A, ka, M, N, K, a_map, c_map, add, rnd, chunks, C
+            ("kv", True, re_, 2 * W, W, (1, 1), (1, 1), False, rnd, 1, T),
+            ("q", True, rq, W, W, sel, (1, 1), False, rnd, 1, T),
+            ("dattn", True, rq, W, W, (1, 1), (1, 1), False, False, 1, T),
+            ("dents_kv", True, re_, W, 2 * W, (1, 1), (1, 1), False, False, 1, f32),
+            ("dents_q", True, rq, W, W, (1, 1), sel, True, False, 1, f32),
+            ("dw_kv", False, W, 2 * W, re_, (1, 1), (1, 1), False, False, 264, f32),
+            ("dw_q", False, W, W, rq, sel, (1, 1), False, False, 264, f32),
+            ("dw_o", False, W, W, rq, (1, 1), (1, 1), False, False, 264, f32),
         ]
         for i, (tag, *case) in enumerate(shapes):
-            ta, tb, ka, M, N, K, a_map, c_map, add, r, chunks = case
-            check_gemm(tag, ta, tb, ka, M, N, K, a_map, c_map, add, r, chunks, seed=40 + i,
-                       timing=(T == f32 and tag == "kv"))
+            ka, M, N, K, a_map, c_map, add, r, chunks, tc = case
+            check_gemm(tag, T, T, ka, M, N, K, a_map, c_map, add, r, chunks, seed=40 + i,
+                       timing=tag in ("kv", "dw_kv"), tc=tc)
         # Group Matching's target-agent K|V projection (Bp 1,632, widths
         # 64): too few 128-row tiles for the SMs, so 64-row tiles
-        check_gemm("kv_gm_target", T, T, True, 1632 * 8, 128, 64, rnd=rnd, seed=49)
-        # the forward's output product: attn (f32) W_o + b_o, post-masked
-        # rows 0, stored in the inputs' type
-        check_gemm("fwd_out", f32, T, True, rq, W, W, seed=50, tc=T, epilogue=True)
-        check_gemm("fwd_out_ragged", f32, T, True, 37, 45, 23, pad=3, seed=51, tc=T,
+        check_gemm("kv_gm_target", T, T, True, 1632 * 8, 128, 64, rnd=rnd, seed=49, tc=T)
+        # the forward's output product: attn W_o + b_o, post-masked rows 0,
+        # stored in the inputs' type
+        check_gemm("fwd_out", T, T, True, rq, W, W, seed=50, tc=T, epilogue=True)
+        check_gemm("fwd_out_ragged", T, T, True, 37, 45, 23, pad=3, seed=51, tc=T,
                    epilogue=True)
-        for i, (ta, tb, ka) in enumerate([(T, T, True), (f32, T, True), (T, f32, False),
-                                          (f32, f32, False)]):
-            for pad in (0, 3):
-                check_gemm(f"ragged_pad{pad}", ta, tb, ka, 37, 45, 23, a_map=(5, 8),
-                           c_map=(3, 4), add=bool(i % 2), rnd=rnd and i == 0, chunks=3,
-                           pad=pad, seed=60 + 2 * i + pad)
+        for i, ka in enumerate((True, False)):
+            for add in (False, True):
+                for pad in (0, 3):
+                    check_gemm(f"ragged_pad{pad}", T, T, ka, 37, 45, 23, a_map=(5, 8),
+                               c_map=(3, 4), add=add, rnd=rnd and ka and not add, chunks=3,
+                               pad=pad, seed=60 + 4 * i + 2 * add + pad)
+    # the tensor cores at every N of the attention's products, both majors of
+    # A, full and ragged M, rows unaligned (pad 3) and aligned
+    for i, N in enumerate((64, 128, 192, 256, 384)):
+        check_gemm(f"n{N}_ka", b16, b16, True, 2 * 4832 + 37, N, W, pad=3 * (i % 2),
+                   seed=80 + i)
+        check_gemm(f"n{N}_ka_bf16_out", b16, b16, True, 4832, N, W, rnd=True, seed=85 + i,
+                   tc=b16)
+        check_gemm(f"n{N}_mk", b16, b16, False, W + 64 * (i % 2), N, rq + 5, pad=3 * (i % 2),
+                   chunks=264, seed=90 + i)
 
 
 OWN_TAGS = ("entity_attn", "gru_", "gemm_kernel")
@@ -757,25 +819,27 @@ def profile_replay(pipe, ps, name_power):
 
 
 def own_kernels_only(replay=None, Bp=4832, Ne=16, Nq=8, W=128, T=151, R=768):
-    """Profiles one float32 call each of the attention forward and backward
-    at a combat shape and of the GRU backward at the agent's: every device
-    kernel each runs must be one of csrc/'s (entity_attn*, gru_*, the
-    product gemm.cuh), no cuBLAS, SDPA or PyTorch kernel. Prints the
-    per-kernel device times of each call, in launch order (its stages).
-    With ``replay`` (pipeline, state), then ``profile_replay``."""
+    """Profiles one call each of the attention forward and backward at a
+    combat shape, in float32 and in bfloat16 (its products on the tensor
+    cores), and of the GRU backward at the agent's: every device kernel each
+    runs must be one of csrc/'s (entity_attn*, gru_*, the products
+    gemm.cuh), no cuBLAS, SDPA or PyTorch kernel. Prints the per-kernel
+    device times of each call, in launch order (its stages). With
+    ``replay`` (pipeline, state), then ``profile_replay``."""
     from refil_torch.ops import entity_attn, gru_kernel
 
-    ents, wi, wo, bo, pm, qm, gout = make_inputs(Bp, Ne, Nq, W, W, W, torch.float32, 7,
-                                                 mask_rows=Ne)
     xs, wx, bx, wh, bhn, h0, g = make_gru_inputs(T, R, GRU_HIDDEN, torch.float32, 8)
     xw = (torch.matmul(xs, wx) + bx).transpose(0, 1).contiguous()
     hs = gru_kernel.kernel_forward(xw, wh, bhn, h0)
-    calls = {
-        "entity_attn_fwd": lambda: entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, HEADS),
-        "entity_attn_bwd": lambda: entity_attn.kernel_backward(ents, wi, wo, pm, qm, gout,
-                                                               HEADS),
-        "gru_bwd": lambda: gru_kernel.kernel_backward(xw, hs, h0, wh, bhn, g),
-    }
+    calls = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        ents, wi, wo, bo, pm, qm, gout = make_inputs(Bp, Ne, Nq, W, W, W, dtype, 7,
+                                                     mask_rows=Ne)
+        calls["entity_attn_fwd" + suffix] = functools.partial(
+            entity_attn.kernel_forward, ents, wi, wo, bo, pm, qm, HEADS)
+        calls["entity_attn_bwd" + suffix] = functools.partial(
+            entity_attn.kernel_backward, ents, wi, wo, pm, qm, gout, HEADS)
+    calls["gru_bwd"] = lambda: gru_kernel.kernel_backward(xw, hs, h0, wh, bhn, g)
     for name, call in calls.items():
         call()
         kernels = profile_kernels(call)
@@ -1812,12 +1876,16 @@ def kernels_line(rows, launches_by_path, launches_by_scale_run):
                 and r["case"] == "agent_x3" and r["dtype"] == "float32")
     gru = next(r for r in rows if r["kernel"] == "gru" and r["case"] == "agent_x3"
                and r["dtype"] == "float32")
+    bf16 = {k: next(r for r in rows if r["kernel"] == k and r["case"] == "agent_x3"
+                    and r.get("path") == "combat" and r["dtype"] == "bfloat16")
+            for k in ("entity_attn", "gru")}
     out = []
     for row, kind, name, source, replaces in (
             (attn, "fwd", "entity_attn_fwd", "entity_attn.cu", "pallas_attn.py:87"),
             (attn, "bwd", "entity_attn_bwd", "entity_attn.cu", "pallas_attn.py:224"),
             (gru, "fwd", "gru_fwd", "gru.cu", "pallas_gru.py:113"),
             (gru, "bwd", "gru_bwd", "gru.cu", "pallas_gru.py:136")):
+        b = bf16[row["kernel"]]
         out.append({
             "name": name, "route": "cuda", "source": f"refil_torch/csrc/{source}",
             "replaces": f"refil_tpu/ops/{replaces}",
@@ -1828,6 +1896,11 @@ def kernels_line(rows, launches_by_path, launches_by_scale_run):
             "max_abs_err": row[f"{kind}_max_abs_err"], "ms": row["ms"][kind],
             "plain_ms": row["ms"][f"{kind}_plain"], "bound_ms": row[f"{kind}_bound_ms"],
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row["ms"][f"{kind}_library"],
+            # the same call in bfloat16 (the attention's products on the tensor cores)
+            "bf16": {"max_abs_err": b[f"{kind}_max_abs_err"], "ms": b["ms"][kind],
+                     "plain_ms": b["ms"][f"{kind}_plain"], "bound_ms": b[f"{kind}_bound_ms"],
+                     "bound_by": b[f"{kind}_bound_by"],
+                     "library_ms": b["ms"].get(f"{kind}_library")},
         })
     return {"kernels": out}
 
@@ -1842,7 +1915,7 @@ def main(argv) -> None:
     sys.path.insert(0, HERE)
     name_power = phase_device()
     attn_rows, gru_rows = attn_shapes(), gru_shapes()
-    phase_build(attn_rows, gru_rows)
+    phase_sass(phase_build(attn_rows, gru_rows))
     rows = phase_kernels(attn_rows, gru_rows)
     replay = None
     if not kernels_only:

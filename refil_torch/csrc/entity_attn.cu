@@ -25,14 +25,25 @@
 // and the softmax is f32. The values the TPU kernel rounds to the input type
 // (qkv, the softmax weights fed to w@v, attn, out, g, dqkv, dl) are rounded
 // here at the same points, so bf16 results follow the same rounding path.
+// The scratch planes between the stages are of type T: each holds only
+// values the TPU kernel rounds to cdt before their next use (see
+// launch_fwd, BwdScratch), so in bf16 every product is bf16 x bf16 into f32,
+// as on the TPU's MXU (pallas_attn.py:98,249), and runs on gemm.cuh's
+// tensor-core instance; in f32 every product is f32 FMA.
 //
 // What bounds it on an H100: a sample reads Ne*D inputs and writes Nq*O
 // outputs but does ~2*Ne*D*2E + 2*Nq*D*E + 2*Nq*E*O multiply-adds for the
 // projections (~95% of its arithmetic): at the combat widths (Ne 16, Nq 8,
-// D = E = O = 128) ~1.6 MFLOP against ~12 KB, ~130 FLOP per byte; at f32
-// outside the tensor cores (67 TFLOP/s vs 3.35 TB/s, ~20 FLOP/byte) the
-// arithmetic bounds it at every width the repository uses. Q, and in the
-// backward dq's products, are formed over the Nq query rows only.
+// D = E = O = 128) ~1.6 MFLOP against ~12 KB, ~130 FLOP per byte. In f32,
+// outside the tensor cores (67 TFLOP/s vs 3.35 TB/s, ~20 FLOP/byte), the
+// arithmetic bounds it at every width the repository uses. In bf16 on the
+// tensor cores (989 TFLOP/s, ~295 FLOP/byte) the function sits near the
+// balance point, but the stages' own traffic does not: each product reads
+// its A plane and writes its C plane (~2 bytes a value each) for 128-256
+// multiply-adds a row, 64-128 FLOP a byte, so the products are bound by the
+// bytes they move; the design stores the planes in bf16, halving them, and
+// keeps every product's copies 16 bytes wide. Q, and in the backward dq's products, are
+// formed over the Nq query rows only.
 //
 // Why stages: a kernel that walked groups of samples and streamed W_qkv and
 // W_o through shared memory (262 KB of f32 weights at width 128, more than
@@ -42,8 +53,8 @@
 // attention itself needs no weights.
 // Forward design (launch_fwd):
 //   (i)   K|V = ents W_kv (Bp*Ne rows) and Q = ents[:, :Nq] W_q (Bp*Nq
-//         rows, addressed by gemm.cuh's row map), rounded in the epilogue
-//         where the TPU rounds qkv;
+//         rows, addressed by gemm.cuh's row map), stored in the input
+//         type, which rounds them where the TPU rounds qkv;
 //   (ii)  entity_attn_fwd_sample_kernel, a warp per (sample, head), no
 //         weights: the scores, the f32 softmax and attn = round(w) v * row_ok,
 //         rounded, written over Q;
@@ -62,11 +73,12 @@
 //         across its sequential grid, pallas_attn.py:274-278, would race);
 //         db_o's chunks by entity_attn_colsum_kernel, and
 //         entity_attn_reduce_kernel sums every chunk in order.
-// No atomics: two runs give the same bits. The f32 scratch (at Bp 14,496,
+// No atomics: two runs give the same bits. The scratch in f32 (at Bp 14,496,
 // Ne 16, Nq 8, E = O = 128): forward K|V 237 MB and Q (then attn) 59 MB;
 // backward K|V 237 MB, Q 59 MB, dattn 59 MB and g post_keep 59 MB, stage
 // (ii) writing dK|dV, dq and attn over the first three; the chunk partials
-// 69 MB; the transposed weights 0.26 MB.
+// 69 MB; the transposed weights 0.26 MB. In bf16 the planes take half
+// (forward 148 MB, backward 207 MB), the partials stay f32.
 //
 // Interface: plain C (extern "C"), loaded with ctypes. The wrapper allocates
 // every output and scratch buffer; each launcher enqueues on the stream it is
@@ -87,16 +99,20 @@ constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory a launch may t
 template <typename T>
 struct Num;
 
+// to_f: a stored value as f32; round: f32 rounded to T, kept in f32;
+// store: f32 rounded to T, as T
 template <>
 struct Num<float> {
   __device__ static float to_f(float x) { return x; }
   __device__ static float round(float x) { return x; }
+  __device__ static float store(float x) { return x; }
 };
 
 template <>
 struct Num<__nv_bfloat16> {
   __device__ static float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
   __device__ static float round(float x) { return __bfloat162float(__float2bfloat16(x)); }
+  __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
 struct Dims {
@@ -189,6 +205,54 @@ __device__ __forceinline__ void warp_copy_rows(float* dst, int ld_dst, const flo
   }
 }
 
+// rows x cols values of a plane (row stride ld_src) to shared dst as f32
+// (row stride ld_dst), over a warp's lanes: float rows by warp_copy_rows
+// (cp.async, landed at the caller's wait); bfloat16 rows converted as they
+// are read, where aligned 16 bytes (8 values) a load, each lane issuing
+// four loads before it stores any, so their latencies overlap
+__device__ __forceinline__ void warp_load_rows(float* dst, int ld_dst, const float* src,
+                                               int ld_src, int rows, int cols) {
+  warp_copy_rows(dst, ld_dst, src, ld_src, rows, cols);
+}
+
+__device__ __forceinline__ void warp_load_rows(float* dst, int ld_dst, const __nv_bfloat16* src,
+                                               int ld_src, int rows, int cols) {
+  if (cols % 8 == 0 && ld_dst % 4 == 0 && ld_src % 8 == 0 && ((uintptr_t)src & 15) == 0) {
+    const int lane = threadIdx.x & 31, cpr = cols / 8, n = rows * cpr;  // 16-byte chunks
+    for (int i0 = 0; i0 < n; i0 += 4 * 32) {
+      uint4 x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + 32 * u + lane;
+        if (i < n)
+          x[u] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(i / cpr) * ld_src +
+                                                      (i % cpr) * 8));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + 32 * u + lane;
+        if (i >= n) continue;
+        // a bfloat16 is the upper half of the f32 it widens to: element 2k
+        // is word k's low half, element 2k + 1 its high half
+        const unsigned w[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+        float v[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[2 * k] = __uint_as_float(w[k] << 16);
+          v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+        }
+        float4* d = reinterpret_cast<float4*>(dst + (i / cpr) * ld_dst + (i % cpr) * 8);
+        d[0] = make_float4(v[0], v[1], v[2], v[3]);
+        d[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+  } else {
+    warp_rows_cols(rows, cols, [&](int r, int c) {
+      dst[r * ld_dst + c] = __bfloat162float(src[(size_t)r * ld_src + c]);
+    });
+  }
+}
+
 // op over the G lanes of the caller's group (G a power of 2 dividing 32,
 // groups of consecutive lanes), by xor shuffles: every lane of a group gets
 // the same bits
@@ -269,11 +333,11 @@ __device__ __forceinline__ int head_softmax(const float* sq, const float* sk,
   return G;
 }
 
-// attn_h = round(w) v_h times row_ok, rounded, over a warp's lanes: row r
-// of the head's Nq x hd block to dst + r * ld
+// attn_h = round(w) v_h times row_ok, stored as T (rounded), over a warp's
+// lanes: row r of the head's Nq x hd block to dst + r * ld
 template <typename T>
 __device__ __forceinline__ void head_attn(const float* sw, const float* sv, const float* srowok,
-                                          float* dst, int ld, int hdp, int hd, int nq, int ne) {
+                                          T* dst, int ld, int hdp, int hd, int nq, int ne) {
   warp_rows4_cols(nq, hd, [&](const int (&rs)[4], int n, int c) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int j = 0; j < ne; ++j) {
@@ -283,7 +347,7 @@ __device__ __forceinline__ void head_attn(const float* sw, const float* sv, cons
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (u < n) dst[rs[u] * ld + c] = Num<T>::round(acc[u] * srowok[rs[u]]);
+      if (u < n) dst[rs[u] * ld + c] = Num<T>::store(acc[u] * srowok[rs[u]]);
   });
 }
 
@@ -308,12 +372,13 @@ __device__ __forceinline__ void head_mask(const uint8_t* pre, int s, const Dims&
 // Stage (ii) of the forward, no weights: one warp per (sample, head), H
 // warps per sample and `spb` samples per block, each warp in its own slice of
 // shared memory (no block barrier). From the rounded q (Nq rows) and k|v (Ne
-// rows) of stage (i) it forms the head's scores, the f32 softmax and attn_h
-// = round(w) v_h * row_ok, rounded as pallas_attn.py:117-126 rounds, and
-// writes it as f32 over q_h's rows, which the warp has read first.
+// rows) of stage (i), stored as T, it forms the head's scores, the f32
+// softmax and attn_h = round(w) v_h * row_ok, rounded as
+// pallas_attn.py:117-126 rounds, and writes it as T over q_h's rows, which
+// the warp has read first.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-entity_attn_fwd_sample_kernel(float* __restrict__ q, const float* __restrict__ kv,
+entity_attn_fwd_sample_kernel(T* __restrict__ q, const T* __restrict__ kv,
                               const uint8_t* __restrict__ pre, Dims d) {
   extern __shared__ __align__(16) char smem[];
   const WarpLayout L = make_warp_layout(d, false);
@@ -324,12 +389,12 @@ entity_attn_fwd_sample_kernel(float* __restrict__ q, const float* __restrict__ k
   float *sq = f + L.q, *sk = f + L.k, *sv = f + L.v, *sw = f + L.w;
   float *smask = f + L.mask, *srowok = f + L.rowok;
   const int E = d.e, E2 = 2 * d.e, hd = d.e / d.h, hdp = L.hdp;
-  float* gq = q + (size_t)s * d.nq * E + h * hd;        // row r of q_h at gq + r * E
-  const float* gkv = kv + (size_t)s * d.ne * E2 + h * hd;  // row j of k_h at gkv + j * E2
+  T* gq = q + (size_t)s * d.nq * E + h * hd;        // row r of q_h at gq + r * E
+  const T* gkv = kv + (size_t)s * d.ne * E2 + h * hd;  // row j of k_h at gkv + j * E2
 
-  warp_copy_rows(sq, hdp, gq, E, d.nq, hd);
-  warp_copy_rows(sk, hdp, gkv, E2, d.ne, hd);
-  warp_copy_rows(sv, hdp, gkv + E, E2, d.ne, hd);
+  warp_load_rows(sq, hdp, gq, E, d.nq, hd);
+  warp_load_rows(sk, hdp, gkv, E2, d.ne, hd);
+  warp_load_rows(sv, hdp, gkv + E, E2, d.ne, hd);
   asm volatile("cp.async.commit_group;\n" ::);
   head_mask(pre, s, d, smask, srowok);
   asm volatile("cp.async.wait_group 0;\n" ::);
@@ -341,22 +406,22 @@ entity_attn_fwd_sample_kernel(float* __restrict__ q, const float* __restrict__ k
 // Stage (ii) of the backward, no weights: one warp per (sample, head), H
 // warps per sample and `spb` samples per block, each warp in its own slice of
 // shared memory, so the phases are ordered by __syncwarp and no block barrier.
-// From the rounded q (Nq rows) and k|v (Ne rows) of stage (i) and the raw
-// dattn = g W_o^T, it recomputes the head's softmax weights and attn and
-// forms its VJP. The warp reads all of its head's rows before it writes any,
-// so the outputs go in place, as f32:
+// From the rounded q (Nq rows) and k|v (Ne rows) of stage (i) and dattn = g
+// W_o^T (each stored as T), it recomputes the head's softmax weights and
+// attn and forms its VJP. The warp reads all of its head's rows before it
+// writes any, so the outputs go in place, as T:
 //   * attn * row_ok, rounded, over dattn (for dW_o);
 //   * dq * scale over q, [dk * scale | dv] over k|v, each rounded where
 //     pallas_attn.py:312 rounds dqkv;
 //   * g * post_keep into gm (for dW_o and db_o), a share per head.
 // dattn is masked and rounded as pallas_attn.py:279-288 does: (g * post_keep)
-// W_o^T equals (g W_o^T) * post_keep exactly, post_keep being 0 or 1.
+// W_o^T equals (g W_o^T) * post_keep exactly, post_keep being 0 or 1, and
+// so does the stored round(g W_o^T) masked, then rounded.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
-                              float* __restrict__ da, const T* __restrict__ g,
-                              const uint8_t* __restrict__ pre, const uint8_t* __restrict__ post,
-                              float* __restrict__ gm, Dims d) {
+entity_attn_bwd_sample_kernel(T* __restrict__ q, T* __restrict__ kv, T* __restrict__ da,
+                              const T* __restrict__ g, const uint8_t* __restrict__ pre,
+                              const uint8_t* __restrict__ post, T* __restrict__ gm, Dims d) {
   extern __shared__ __align__(16) char smem[];
   const WarpLayout L = make_warp_layout(d, true);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -368,15 +433,16 @@ entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
   float* spost = f + L.post;
   const int E = d.e, E2 = 2 * d.e, O = d.o, hd = d.e / d.h, hdp = L.hdp;
   const int nq = d.nq, ne = d.ne;
-  float* gq = q + (size_t)s * nq * E + h * hd;    // row r of q_h at gq + r * E
-  float* gkv = kv + (size_t)s * ne * E2 + h * hd;  // row j of k_h at gkv + j * E2, v_h + E
-  float* gda = da + (size_t)s * nq * E + h * hd;
+  T* gq = q + (size_t)s * nq * E + h * hd;    // row r of q_h at gq + r * E
+  T* gkv = kv + (size_t)s * ne * E2 + h * hd;  // row j of k_h at gkv + j * E2, v_h + E
+  T* gda = da + (size_t)s * nq * E + h * hd;
 
-  // the head's rows of q, k, v and the raw dattn, every copy in flight at once
-  warp_copy_rows(sq, hdp, gq, E, nq, hd);
-  warp_copy_rows(sk, hdp, gkv, E2, ne, hd);
-  warp_copy_rows(sv, hdp, gkv + E, E2, ne, hd);
-  warp_copy_rows(sda, hdp, gda, E, nq, hd);
+  // the head's rows of q, k, v and the unmasked dattn (f32 rows: every copy
+  // in flight at once)
+  warp_load_rows(sq, hdp, gq, E, nq, hd);
+  warp_load_rows(sk, hdp, gkv, E2, ne, hd);
+  warp_load_rows(sv, hdp, gkv + E, E2, ne, hd);
+  warp_load_rows(sda, hdp, gda, E, nq, hd);
   asm volatile("cp.async.commit_group;\n" ::);
   warp_rows_cols(nq, ne, [&](int r, int j) {
     smask[r * ne + j] = pre ? (float)pre[((size_t)s * d.mask_rows + r) * ne + j] : 0.f;
@@ -396,7 +462,7 @@ entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
   });
   const size_t g0 = (size_t)s * nq * O;
   for (int i = h * 32 + lane; i < nq * O; i += d.h * 32)
-    gm[g0 + i] = Num<T>::to_f(g[g0 + i]) * spost[i / O];
+    gm[g0 + i] = Num<T>::store(Num<T>::to_f(g[g0 + i]) * spost[i / O]);
   __syncwarp();
 
   const int G = head_softmax(sq, sk, smask, sw, hdp, hd, nq, ne, d.scale);
@@ -438,7 +504,7 @@ entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (u < n) gq[rs[u] * E + c] = Num<T>::round(acc[u] * d.scale);
+      if (u < n) gq[rs[u] * E + c] = Num<T>::store(acc[u] * d.scale);
   });
   warp_rows4_cols(ne, hd, [&](const int (&js)[4], int n, int c) {
     float dk[4] = {0.f, 0.f, 0.f, 0.f}, dv[4] = {0.f, 0.f, 0.f, 0.f};
@@ -453,8 +519,8 @@ entity_attn_bwd_sample_kernel(float* __restrict__ q, float* __restrict__ kv,
 #pragma unroll
     for (int u = 0; u < 4; ++u)
       if (u < n) {
-        gkv[js[u] * E2 + c] = Num<T>::round(dk[u] * d.scale);
-        gkv[js[u] * E2 + E + c] = Num<T>::round(dv[u]);
+        gkv[js[u] * E2 + c] = Num<T>::store(dk[u] * d.scale);
+        gkv[js[u] * E2 + E + c] = Num<T>::store(dv[u]);
       }
   });
 }
@@ -478,8 +544,9 @@ __global__ void entity_attn_transpose_kernel(const T* __restrict__ src, int rows
 }
 
 // partials[c][offset + o] = sum over the rows of chunk c, in order, of
-// x[row][o]: db_o's chunk partials from the post-masked g
-__global__ void entity_attn_colsum_kernel(const float* __restrict__ x, int rows, int cols,
+// x[row][o] in f32: db_o's chunk partials from the post-masked g
+template <typename T>
+__global__ void entity_attn_colsum_kernel(const T* __restrict__ x, int rows, int cols,
                                           int chunks, size_t k_total, size_t offset,
                                           float* __restrict__ partials) {
   const int c = blockIdx.x;
@@ -487,7 +554,7 @@ __global__ void entity_attn_colsum_kernel(const float* __restrict__ x, int rows,
   const int r1 = (int)((long long)rows * (c + 1) / chunks);
   for (int o = threadIdx.x; o < cols; o += blockDim.x) {
     float acc = 0.f;
-    for (int r = r0; r < r1; ++r) acc += x[(size_t)r * cols + o];
+    for (int r = r0; r < r1; ++r) acc += Num<T>::to_f(x[(size_t)r * cols + o]);
     partials[(size_t)c * k_total + offset + o] = acc;
   }
 }
@@ -511,46 +578,56 @@ Dims make_dims(int bp, int ne, int nq, int d, int e, int o, int h, int mask_rows
   return dims;
 }
 
-// The forward as stages on one stream, with f32 scratch q (Bp*Nq, E): Q,
-// then attn, and kv (Bp*Ne, 2E): K|V, each row-major:
+// The forward as stages on one stream, with scratch planes of the inputs'
+// type T, each row-major: q (Bp*Nq, E): Q, then attn; kv (Bp*Ne, 2E): K|V.
+// Both hold only values the TPU kernel rounds to cdt before their next use
+// (qkv, pallas_attn.py:103; attn, :130), so in T they lose nothing.
 //   (i)   K|V = ents W_kv, Q = ents[:, :Nq] W_q, through gemm::launch;
 //   (ii)  entity_attn_fwd_sample_kernel;
 //   (iii) out = attn W_o + b_o, post-masked rows 0, stored as T.
 template <typename T>
 cudaError_t launch_fwd(const T* ents, const T* wqkv, const T* wo, const T* bo, const uint8_t* pm,
-                       const uint8_t* qm, T* out, float* q, float* kv, const Dims& d, int grid,
+                       const uint8_t* qm, T* out, T* q, T* kv, const Dims& d, int grid,
                        int smem, cudaStream_t st) {
   using gemm::operand;
   using gemm::output;
-  const int E = d.e, E2 = 2 * d.e, E3 = 3 * d.e, rnd = sizeof(T) == 2;
+  const int E = d.e, E2 = 2 * d.e, E3 = 3 * d.e;
   const int rows_e = d.bp * d.ne, rows_q = d.bp * d.nq;
   cudaError_t err;
 #define REFIL_TRY(call) \
   if ((err = (call)) != cudaSuccess) return err
   REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d), operand(wqkv + E, E3),
-                                      output(kv, E2, 1, 1, 0, rnd), rows_e, E2, d.d, 1, st)));
+                                      output(kv, E2), rows_e, E2, d.d, 1, st)));
   REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d, d.nq, d.ne), operand(wqkv, E3),
-                                      output(q, E, 1, 1, 0, rnd), rows_q, E, d.d, 1, st)));
+                                      output(q, E), rows_q, E, d.d, 1, st)));
   if (smem > kDefaultSmem)
     REFIL_TRY(cudaFuncSetAttribute(entity_attn_fwd_sample_kernel<T>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   entity_attn_fwd_sample_kernel<T><<<grid, 32 * d.h * d.spb, smem, st>>>(q, kv, pm, d);
   REFIL_TRY(cudaGetLastError());
-  REFIL_TRY((gemm::launch<float, T, true, T, true>(operand(q, E), operand(wo, d.o),
-                                                   output(out, d.o, 1, 1, 0, 0, 0, bo, qm),
-                                                   rows_q, d.o, E, 1, st)));
+  REFIL_TRY((gemm::launch<T, T, true, T, true>(operand(q, E), operand(wo, d.o),
+                                               output(out, d.o, 1, 1, 0, 0, 0, bo, qm),
+                                               rows_q, d.o, E, 1, st)));
 #undef REFIL_TRY
   return cudaSuccess;
 }
 
-// f32 scratch of the backward, each (rows, columns) row-major:
-//   q (Bp*Nq, E): Q, then dq;  kv (Bp*Ne, 2E): K|V, then dK|dV;
-//   da (Bp*Nq, E): dattn, then attn;  gm (Bp*Nq, O): g * post_keep;
-//   partials (chunks, D*3E + E*O + O): the weight gradients' chunk partials;
-//   wt (3E*D + O*E, of the inputs' type): the transposed weights.
+// Scratch of the backward, each (rows, columns) row-major. Planes of the
+// inputs' type T, each holding only values the TPU kernel rounds to cdt
+// before their next use, so in T they lose nothing:
+//   q (Bp*Nq, E): Q (qkv, pallas_attn.py:256), then dq (dqkv, :312);
+//   kv (Bp*Ne, 2E): K|V (:256), then dK|dV (:312);
+//   da (Bp*Nq, E): dattn = g W_o^T (cast to cdt per head, :286-288, after
+//     row_ok, by which it is 0 or itself: rounding it first changes no
+//     value), then attn (:275);
+//   gm (Bp*Nq, O): g * post_keep (g is T and post_keep 0 or 1: exact; :275);
+//   wt (3E*D + O*E): the transposed weights.
+// f32: partials (chunks, D*3E + E*O + O), the weight gradients' chunk
+// partials, as dEnts, the outputs.
 template <typename T>
 struct BwdScratch {
-  float *q, *kv, *da, *gm, *partials;
+  T *q, *kv, *da, *gm;
+  float* partials;
   T* wt;  // W_qkv^T (3E, D), then W_o^T (O, E)
 };
 
@@ -568,7 +645,7 @@ cudaError_t launch_bwd(const T* ents, const T* g, const T* wqkv, const T* wo, co
                        const Dims& d, int grid, int smem, int chunks, cudaStream_t st) {
   using gemm::operand;
   using gemm::output;
-  const int E = d.e, E2 = 2 * d.e, E3 = 3 * d.e, rnd = sizeof(T) == 2;
+  const int E = d.e, E2 = 2 * d.e, E3 = 3 * d.e;
   const int rows_e = d.bp * d.ne, rows_q = d.bp * d.nq;
   const size_t n_w = (size_t)d.d * E3, n_wo = (size_t)E * d.o;
   const long long k_total = (long long)(n_w + n_wo + d.o);
@@ -585,9 +662,9 @@ cudaError_t launch_bwd(const T* ents, const T* g, const T* wqkv, const T* wo, co
   const T* wqkv_t = s.wt;                      // (3E, D): W_q^T rows, then W_kv^T rows
   const T* wo_t = s.wt + (size_t)E3 * d.d;     // (O, E)
   REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d), operand(wqkv + E, E3),
-                                      output(s.kv, E2, 1, 1, 0, rnd), rows_e, E2, d.d, 1, st)));
+                                      output(s.kv, E2), rows_e, E2, d.d, 1, st)));
   REFIL_TRY((gemm::launch<T, T, true>(operand(ents, d.d, d.nq, d.ne), operand(wqkv, E3),
-                                      output(s.q, E, 1, 1, 0, rnd), rows_q, E, d.d, 1, st)));
+                                      output(s.q, E), rows_q, E, d.d, 1, st)));
   REFIL_TRY((gemm::launch<T, T, true>(operand(g, d.o), operand(wo_t, E), output(s.da, E),
                                       rows_q, E, d.o, 1, st)));
   // (ii)
@@ -598,22 +675,21 @@ cudaError_t launch_bwd(const T* ents, const T* g, const T* wqkv, const T* wo, co
                                                                          pm, qm, s.gm, d);
   REFIL_TRY(cudaGetLastError());
   // (iii)
-  REFIL_TRY((gemm::launch<float, T, true>(operand(s.kv, E2), operand(wqkv_t + E * d.d, d.d),
-                                          output(dents, d.d), rows_e, d.d, E2, 1, st)));
-  REFIL_TRY((gemm::launch<float, T, true>(operand(s.q, E), operand(wqkv_t, d.d),
-                                          output(dents, d.d, d.nq, d.ne, 1), rows_q, d.d, E, 1,
-                                          st)));
-  REFIL_TRY((gemm::launch<T, float, false>(
+  REFIL_TRY((gemm::launch<T, T, true>(operand(s.kv, E2), operand(wqkv_t + E * d.d, d.d),
+                                      output(dents, d.d), rows_e, d.d, E2, 1, st)));
+  REFIL_TRY((gemm::launch<T, T, true>(operand(s.q, E), operand(wqkv_t, d.d),
+                                      output(dents, d.d, d.nq, d.ne, 1), rows_q, d.d, E, 1, st)));
+  REFIL_TRY((gemm::launch<T, T, false>(
       operand(ents, d.d), operand(s.kv, E2), output(s.partials + E, E3, 1, 1, 0, 0, k_total),
       d.d, E2, rows_e, chunks, st)));
-  REFIL_TRY((gemm::launch<T, float, false>(
+  REFIL_TRY((gemm::launch<T, T, false>(
       operand(ents, d.d, d.nq, d.ne), operand(s.q, E),
       output(s.partials, E3, 1, 1, 0, 0, k_total), d.d, E, rows_q, chunks, st)));
-  REFIL_TRY((gemm::launch<float, float, false>(
+  REFIL_TRY((gemm::launch<T, T, false>(
       operand(s.da, E), operand(s.gm, d.o), output(s.partials + n_w, d.o, 1, 1, 0, 0, k_total),
       E, d.o, rows_q, chunks, st)));
-  entity_attn_colsum_kernel<<<chunks, 128, 0, st>>>(s.gm, rows_q, d.o, chunks, (size_t)k_total,
-                                                    n_w + n_wo, s.partials);
+  entity_attn_colsum_kernel<T><<<chunks, 128, 0, st>>>(s.gm, rows_q, d.o, chunks,
+                                                       (size_t)k_total, n_w + n_wo, s.partials);
   REFIL_TRY(cudaGetLastError());
   entity_attn_reduce_kernel<<<(int)((k_total + kThreads - 1) / kThreads), kThreads, 0, st>>>(
       s.partials, chunks, (int)k_total, dweights);
@@ -658,8 +734,8 @@ int entity_attn_plan(int bwd, int dtype, int bp, int ne, int nq, int d, int e, i
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. pre may be null (no pre-mask). f32
-// scratch q (Bp*Nq*E) and kv (Bp*Ne*2E); spb, grid and smem from
+// dtype: 0 = float32, 1 = bfloat16. pre may be null (no pre-mask). Scratch
+// of the inputs' type q (Bp*Nq*E) and kv (Bp*Ne*2E); spb, grid and smem from
 // entity_attn_plan(bwd = 0).
 int entity_attn_fwd(int dtype, const void* ents, const void* wqkv, const void* wo,
                     const void* bo, const void* pre, const void* post, void* out, void* q,
@@ -675,15 +751,14 @@ int entity_attn_fwd(int dtype, const void* ents, const void* wqkv, const void* w
                                      (const float*)bo, pm, qm, (float*)out, (float*)q,
                                      (float*)kv, dims, grid, smem, st)
                  : launch_fwd<B>((const B*)ents, (const B*)wqkv, (const B*)wo, (const B*)bo, pm,
-                                 qm, (B*)out, (float*)q, (float*)kv, dims, grid, smem, st);
+                                 qm, (B*)out, (B*)q, (B*)kv, dims, grid, smem, st);
   return (int)err;
 }
 
-// f32 scratch q (Bp*Nq*E), kv (Bp*Ne*2E), da (Bp*Nq*E), gm (Bp*Nq*O),
-// partials (chunks, D*3E + E*O + O); wt (3E*D + O*E) of the inputs' type;
-// dweights: (D*3E + E*O + O,) f32, laid
-// out as dW_qkv, dW_o, db_o. spb, grid, smem and chunks from
-// entity_attn_plan(bwd = 1).
+// Scratch of the inputs' type q (Bp*Nq*E), kv (Bp*Ne*2E), da (Bp*Nq*E), gm
+// (Bp*Nq*O) and wt (3E*D + O*E); f32 partials (chunks, D*3E + E*O + O);
+// dweights: (D*3E + E*O + O,) f32, laid out as dW_qkv, dW_o, db_o. spb,
+// grid, smem and chunks from entity_attn_plan(bwd = 1).
 int entity_attn_bwd(int dtype, const void* ents, const void* g, const void* wqkv, const void* wo,
                     const void* pre, const void* post, void* dents, void* q, void* kv, void* da,
                     void* gm, void* wt, void* partials, void* dweights, int bp, int ne, int nq,
@@ -695,16 +770,17 @@ int entity_attn_bwd(int dtype, const void* ents, const void* g, const void* wqkv
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* pm = (const uint8_t*)pre;
   const uint8_t* qm = (const uint8_t*)post;
-  float *fq = (float*)q, *fkv = (float*)kv, *fda = (float*)da, *fgm = (float*)gm;
   float* fp = (float*)partials;
   const cudaError_t err =
       dtype == 0
           ? launch_bwd<float>((const float*)ents, (const float*)g, (const float*)wqkv,
                               (const float*)wo, pm, qm, (float*)dents,
-                              BwdScratch<float>{fq, fkv, fda, fgm, fp, (float*)wt},
+                              BwdScratch<float>{(float*)q, (float*)kv, (float*)da, (float*)gm,
+                                                fp, (float*)wt},
                               (float*)dweights, dims, grid, smem, chunks, st)
           : launch_bwd<B>((const B*)ents, (const B*)g, (const B*)wqkv, (const B*)wo, pm, qm,
-                          (float*)dents, BwdScratch<B>{fq, fkv, fda, fgm, fp, (B*)wt},
+                          (float*)dents,
+                          BwdScratch<B>{(B*)q, (B*)kv, (B*)da, (B*)gm, fp, (B*)wt},
                           (float*)dweights, dims, grid, smem, chunks, st);
   return (int)err;
 }
@@ -715,9 +791,9 @@ int entity_attn_bwd(int dtype, const void* ents, const void* g, const void* wqkv
 // stride), leading dimensions and the epilogue (bias of C's type, null or
 // (N,); drop, null or a byte per row) as in gemm::Operand and gemm::Output.
 // Takes the (ta, tb, ka, tc) the attention uses: float32 (0, 0, 1, 0), (0,
-// 0, 0, 0); bfloat16 inputs (1, 1, 1, 0), (0, 1, 1, 0), (1, 0, 0, 0) and the
-// forward's output product (0, 1, 1, 1); a bias or drop only with the
-// output product's (0, 0, 1, 0) or (0, 1, 1, 1); any other returns
+// 0, 0, 0), on the FMA instance; bfloat16 operands (1, 1, 1, 0), (1, 1, 0,
+// 0), (1, 1, 1, 1), on the tensor cores; a bias or drop only with the
+// output product's (0, 0, 1, 0) or (1, 1, 1, 1); any other returns
 // cudaErrorInvalidValue.
 int entity_attn_gemm(int ta, int tb, int ka, int tc, const void* a, long long lda, int a_group,
                      int a_stride, const void* b, long long ldb, void* c, long long ldc,
@@ -730,12 +806,12 @@ int entity_attn_gemm(int ta, int tb, int ka, int tc, const void* a, long long ld
   const uint8_t* dr = (const uint8_t*)drop;
   cudaStream_t st = (cudaStream_t)stream;
   if (tc == 1) {
-    if (ta != 0 || tb != 1 || ka != 1) return (int)cudaErrorInvalidValue;
-    return (int)gemm::launch<float, B, true, B, true>(
-        A, Bo,
-        gemm::output((B*)c, ldc, c_group, c_stride, add, round_bf16, chunk_stride,
-                     (const B*)bias, dr),
-        M, N, K, chunks, st);
+    if (ta != 1 || tb != 1 || ka != 1) return (int)cudaErrorInvalidValue;
+    const gemm::Output<B> Cb = gemm::output((B*)c, ldc, c_group, c_stride, add, round_bf16,
+                                            chunk_stride, (const B*)bias, dr);
+    if (bias != nullptr || drop != nullptr)  // the bfloat16 forward's output product
+      return (int)gemm::launch<B, B, true, B, true>(A, Bo, Cb, M, N, K, chunks, st);
+    return (int)gemm::launch<B, B, true>(A, Bo, Cb, M, N, K, chunks, st);
   }
   const gemm::Output<float> C = gemm::output((float*)c, ldc, c_group, c_stride, add, round_bf16,
                                              chunk_stride, (const float*)bias, dr);
@@ -747,10 +823,19 @@ int entity_attn_gemm(int ta, int tb, int ka, int tc, const void* a, long long ld
     case 1: return (int)gemm::launch<float, float, true>(A, Bo, C, M, N, K, chunks, st);
     case 0: return (int)gemm::launch<float, float, false>(A, Bo, C, M, N, K, chunks, st);
     case 7: return (int)gemm::launch<B, B, true>(A, Bo, C, M, N, K, chunks, st);
-    case 3: return (int)gemm::launch<float, B, true>(A, Bo, C, M, N, K, chunks, st);
-    case 4: return (int)gemm::launch<B, float, false>(A, Bo, C, M, N, K, chunks, st);
+    case 6: return (int)gemm::launch<B, B, false>(A, Bo, C, M, N, K, chunks, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tile (rows x columns) the tensor-core instance takes for an M x N
+// product in `chunks` split-K chunks on `device` (gemm::tc::tile_of)
+int entity_attn_gemm_tile(int M, int N, int chunks, int device, int* rows, int* cols) {
+  int n_sm = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  gemm::tc::tile_of(M, N, chunks, n_sm, rows, cols);
+  return (int)cudaSuccess;
 }
 
 const char* entity_attn_error_string(int err) {

@@ -105,12 +105,13 @@ def entity_attention(
 
 
 class ForwardStages(NamedTuple):
-    """What ``entity_attention_forward_staged`` returns."""
+    """What ``entity_attention_forward_staged`` returns: the planes in the
+    type they are stored in, their values rounded to the inputs' dtype."""
     out: torch.Tensor  # (B, Nq, O) in the inputs' dtype
-    q: torch.Tensor  # (B, Nq, E) f32, rounded to the inputs' dtype
-    kv: torch.Tensor  # (B, Ne, 2E) f32, rounded
+    q: torch.Tensor  # (B, Nq, E) plane
+    kv: torch.Tensor  # (B, Ne, 2E) plane
     weights: torch.Tensor  # (B, H, Nq, Ne) f32 softmax
-    attn: torch.Tensor  # (B, Nq, E) f32, rounded, row_ok applied
+    attn: torch.Tensor  # (B, Nq, E) plane, row_ok applied
     row_ok: torch.Tensor  # (B, Nq) f32: 0 where the pre-mask blocks the whole row
 
 
@@ -122,10 +123,14 @@ def entity_attention_forward_staged(
     pre_mask: Optional[torch.Tensor],
     post_mask: torch.Tensor,
     n_heads: int,
+    plane_dtype: Optional[torch.dtype] = None,
 ) -> ForwardStages:
     """``entity_attention`` computed in the stages of the CUDA forward
     (``csrc/entity_attn.cu``, ``launch_fwd``), so that each stage has a
-    plain counterpart:
+    plain counterpart. The planes between the stages (Q, K|V, attn) are
+    stored in ``plane_dtype``: None, the inputs' dtype, as the kernels store
+    them; float32 keeps them in f32, which changes no value (each holds
+    values already rounded to the inputs' dtype):
 
       (i)   K|V = ents W_kv over all Ne rows, Q = ents[:, :Nq] W_q over the
             query rows only;
@@ -139,6 +144,7 @@ def entity_attention_forward_staged(
     the softmax weights fed to w v, attn, out)."""
     cdt = entities.dtype
     rnd = lambda x: x.to(cdt).float()  # noqa: E731
+    plane = lambda x: x.to(plane_dtype or cdt)  # noqa: E731  (a stored plane)
     B = entities.shape[0]
     Nq = post_mask.shape[1]
     E = in_kernel.shape[1] // 3
@@ -148,21 +154,21 @@ def entity_attention_forward_staged(
     heads = lambda t: t.reshape(B, t.shape[1], n_heads, hd).transpose(1, 2)  # noqa: E731
 
     # (i) projections
-    kv = rnd(x @ w_qkv[:, E:])
-    q = rnd(x[:, :Nq] @ w_qkv[:, :E])
+    kv = plane(rnd(x @ w_qkv[:, E:]))
+    q = plane(rnd(x[:, :Nq] @ w_qkv[:, :E]))
 
     # (ii) the attention, per sample and head
     pm = None if pre_mask is None else pre_mask[:, :Nq]
     row_ok = (torch.ones((B, Nq)) if pm is None else (~pm.all(-1)).float()).to(x.device)
-    logits = heads(q) @ heads(kv[..., :E]).transpose(-1, -2) * scale
+    logits = heads(q.float()) @ heads(kv[..., :E].float()).transpose(-1, -2) * scale
     if pm is not None:
         logits = logits.masked_fill(pm[:, None], NEG)
     w = torch.softmax(logits, dim=-1)  # (B, H, Nq, Ne) f32
-    attn = (rnd(w) @ heads(kv[..., E:])).transpose(1, 2).reshape(B, Nq, E)
-    attn = rnd(attn * row_ok[..., None])
+    attn = (rnd(w) @ heads(kv[..., E:].float())).transpose(1, 2).reshape(B, Nq, E)
+    attn = plane(rnd(attn * row_ok[..., None]))
 
     # (iii) the output projection, bias and post-mask in its epilogue
-    out = attn @ out_kernel.float()
+    out = attn.float() @ out_kernel.float()
     if out_bias is not None:
         out = out + out_bias.float()
     out = out.masked_fill(post_mask[..., None], 0.0).to(cdt)
@@ -186,10 +192,14 @@ def entity_attention_backward_staged(
     post_mask: torch.Tensor,
     g: torch.Tensor,
     n_heads: int,
+    plane_dtype: Optional[torch.dtype] = None,
 ) -> BackwardStages:
     """The gradients of ``entity_attention`` for the output gradient ``g``,
     computed in the stages of the CUDA backward (``csrc/entity_attn.cu``,
-    ``launch_bwd``), so that each stage has a plain counterpart:
+    ``launch_bwd``), so that each stage has a plain counterpart. The planes
+    between the stages (Q then dq, K|V then dK|dV, dattn then attn, g
+    post_keep) are stored in ``plane_dtype`` as the forward's are (None: the
+    inputs' dtype, as the kernels store them):
 
       (i)   K|V, Q and the attention as ``entity_attention_forward_staged``
             forms them, dattn = g W_o^T;
@@ -202,6 +212,7 @@ def entity_attention_backward_staged(
     (qkv, the softmax weights fed to products, dattn, attn, dl, dqkv)."""
     cdt = entities.dtype
     rnd = lambda x: x.to(cdt).float()  # noqa: E731
+    plane = lambda x: x.to(plane_dtype or cdt)  # noqa: E731  (a stored plane)
     B, Ne, D = entities.shape
     Nq = post_mask.shape[1]
     E = in_kernel.shape[1] // 3
@@ -213,9 +224,12 @@ def entity_attention_backward_staged(
 
     # (i) the recomputed forward and dattn
     fwd = entity_attention_forward_staged(entities, in_kernel, out_kernel, None, pre_mask,
-                                          post_mask, n_heads)
-    q, kv, w, attn, row_ok = fwd.q, fwd.kv, fwd.weights, fwd.attn, fwd.row_ok
-    dattn_raw = g.to(cdt).float() @ w_o.T
+                                          post_mask, n_heads, plane_dtype)
+    w, row_ok = fwd.weights, fwd.row_ok
+    q, kv, attn = fwd.q.float(), fwd.kv.float(), fwd.attn.float()
+    # dattn = g W_o^T as stored: in the inputs' dtype it is rounded before
+    # the row mask below, which is 0 or 1, so that rounding changes no value
+    dattn_raw = plane(g.to(cdt).float() @ w_o.T).float()
 
     # (ii) the attention's VJP, per sample
     post_keep = (~post_mask).float()
@@ -225,10 +239,10 @@ def entity_attention_backward_staged(
     dv = rnd(rnd(w).transpose(-1, -2) @ dah)
     dw = dah @ vh.transpose(-1, -2)
     dl = rnd(w * (dw - (dw * w).sum(-1, keepdim=True)))
-    dq = rnd(merge(dl @ kh) * scale)
+    dq = plane(rnd(merge(dl @ kh) * scale)).float()
     dk = rnd(merge(dl.transpose(-1, -2) @ qh) * scale)
-    dkv = torch.cat([dk, merge(dv)], dim=-1)
-    gm = g.float() * post_keep[..., None]
+    dkv = plane(torch.cat([dk, merge(dv)], dim=-1)).float()
+    gm = plane(g.to(cdt).float() * post_keep[..., None]).float()
 
     # (iii) dEnts and the weight gradients
     d_ents = dkv @ w_qkv[:, E:].T

@@ -18,8 +18,11 @@ main path went through the kernels. One launch is all the stage kernels of
 one call: forward, the projections (``csrc/gemm.cuh``), the per-sample kernel
 and the output product; backward, the projections, the per-sample kernel,
 the products of dEnts and the weight gradients over row chunks, and the
-chunks summed in order. ``gemm`` launches the matrix product alone, for its
-checks; the main path never calls it, so its count stays 0 there.
+chunks summed in order. In bfloat16 every product runs on the tensor cores
+(``gemm.cuh``'s wgmma instance) and the planes between the stages are
+bfloat16; in float32 the products run on its f32 FMA instance. ``gemm``
+launches the matrix product alone, for its checks; the main path never
+calls it, so its count stays 0 there.
 """
 from __future__ import annotations
 
@@ -60,6 +63,8 @@ def _lib():
         lib.entity_attn_gemm.argtypes = ([i] * 4 + [p, ll, i, i] + [p, ll] * 2 + [i] * 4
                                          + [ll, p, p] + [i] * 4 + [p])
         lib.entity_attn_gemm.restype = i
+        lib.entity_attn_gemm_tile.argtypes = [i] * 4 + [ip] * 2
+        lib.entity_attn_gemm_tile.restype = i
         lib.entity_attn_error_string.argtypes = [i]
         lib.entity_attn_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -106,21 +111,50 @@ class Plan(NamedTuple):
     grid: int  # its blocks
     smem: int  # its dynamic shared memory in bytes
     chunks: int  # row chunks of the backward's weight-gradient products (0: forward)
+    # each product stage's instance of csrc/gemm.cuh, in launch order:
+    # "stage=wgmma_bf16_<rows>x<cols>" (the tensor cores, its tile) or
+    # "stage=fma_f32"
+    products: tuple = ()
+
+
+def product_stages(bwd: bool, dims, chunks: int):
+    """(stage, M, N, split-K chunks) of each product a call launches, in
+    the order ``launch_fwd`` / ``launch_bwd`` (``csrc/entity_attn.cu``)
+    launch them."""
+    Bp, Ne, Nq, D, E, O, _ = dims
+    rows_e, rows_q = Bp * Ne, Bp * Nq
+    stages = [("i_proj_kv", rows_e, 2 * E, 1), ("i_proj_q", rows_q, E, 1)]
+    if not bwd:
+        return stages + [("iii_out", rows_q, O, 1)]
+    return stages + [("i_dattn", rows_q, E, 1), ("iii_dents_kv", rows_e, D, 1),
+                     ("iii_dents_q", rows_q, D, 1), ("iii_dw_kv", D, 2 * E, chunks),
+                     ("iii_dw_q", D, E, chunks), ("iii_dw_o", E, O, chunks)]
 
 
 @functools.lru_cache(maxsize=64)  # a few dozen call shapes per run
 def launch_plan(bwd: bool, dtype: torch.dtype, dims, device_index: int) -> Plan:
     """The launch of a call's per-sample kernel at ``dims`` = (Bp, Ne, Nq,
-    D, E, O, heads); raises where not even one sample fits one block's
-    shared memory."""
+    D, E, O, heads), and the instance each of its products takes (bfloat16:
+    the tensor cores, float32: FMA); raises where not even one sample fits
+    one block's shared memory."""
     lib = _lib()
     Bp, Ne, Nq, D, E, O, H = dims
-    out = [ctypes.c_int() for _ in Plan._fields]
+    out = [ctypes.c_int() for _ in range(4)]
     err = lib.entity_attn_plan(int(bwd), _DTYPES[dtype], Bp, Ne, Nq, D, E, O, H, device_index,
                                *(ctypes.byref(v) for v in out))
     _check(lib, err, f"entity attention plan (Ne={Ne} D={D} E={E} O={O}: too wide "
                      "for one block's shared memory?)")
-    return Plan(*(v.value for v in out))
+    spb, grid, smem, chunks = (v.value for v in out)
+    products = []
+    for stage, M, N, ch in product_stages(bwd, dims, chunks):
+        if dtype != torch.bfloat16:
+            products.append(f"{stage}=fma_f32")
+            continue
+        rows, cols = ctypes.c_int(), ctypes.c_int()
+        _check(lib, lib.entity_attn_gemm_tile(M, N, ch, device_index, ctypes.byref(rows),
+                                              ctypes.byref(cols)), "entity_attn_gemm_tile")
+        products.append(f"{stage}=wgmma_bf16_{rows.value}x{cols.value}")
+    return Plan(spb, grid, smem, chunks, tuple(products))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -146,8 +180,9 @@ def kernel_forward(entities, in_kernel, out_kernel, out_bias, pre_mask, post_mas
     qm = post_mask.contiguous()
     plan = launch_plan(False, entities.dtype, (Bp, Ne, Nq, D, E, O, n_heads),
                        entities.device.index)
-    # f32 scratch: Q (then attn), (Bp * Nq, E), and K|V, (Bp * Ne, 2E)
-    scratch = torch.empty((Bp * (Nq + 2 * Ne) * E,), dtype=torch.float32,
+    # scratch of the inputs' type (the values the TPU rounds to it): Q (then
+    # attn), (Bp * Nq, E), and K|V, (Bp * Ne, 2E)
+    scratch = torch.empty((Bp * (Nq + 2 * Ne) * E,), dtype=entities.dtype,
                           device=entities.device)
     q = scratch.data_ptr()
     kv = q + Bp * Nq * E * scratch.element_size()
@@ -183,13 +218,15 @@ def kernel_backward(entities, in_kernel, out_kernel, pre_mask, post_mask, g,
         pm = None if pre_mask is None else pre_mask.contiguous()
         qm = post_mask.contiguous()
         plan = launch_plan(True, entities.dtype, (Bp, Ne, Nq, D, E, O, n_heads), dev.index)
-        f32 = dict(dtype=torch.float32, device=dev)
-        q = torch.empty((Bp * Nq * E,), **f32)  # Q, then dq
-        kv = torch.empty((Bp * Ne * 2 * E,), **f32)  # K|V, then dK|dV
-        da = torch.empty((Bp * Nq * E,), **f32)  # dattn, then attn
-        gm = torch.empty((Bp * Nq * O,), **f32)  # g * post_keep
-        wt = torch.empty((3 * E * D + O * E,), dtype=entities.dtype, device=dev)  # W^T
-        partials = torch.empty((plan.chunks, n_w + n_wo + O), **f32)
+        # planes of the inputs' type (each holds values the TPU rounds to it;
+        # csrc/entity_attn.cu, BwdScratch); the chunk partials f32
+        cdt = dict(dtype=entities.dtype, device=dev)
+        q = torch.empty((Bp * Nq * E,), **cdt)  # Q, then dq
+        kv = torch.empty((Bp * Ne * 2 * E,), **cdt)  # K|V, then dK|dV
+        da = torch.empty((Bp * Nq * E,), **cdt)  # dattn, then attn
+        gm = torch.empty((Bp * Nq * O,), **cdt)  # g * post_keep
+        wt = torch.empty((3 * E * D + O * E,), **cdt)  # W^T
+        partials = torch.empty((plan.chunks, n_w + n_wo + O), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.entity_attn_bwd(
             _DTYPES[entities.dtype], _ptr(ents), _ptr(gg), _ptr(wi), _ptr(wo), _ptr(pm),
@@ -265,7 +302,9 @@ def gemm(a: Operand, b: Operand, c: Operand, M: int, N: int, K: int, ka: bool,
     bool) is set as zeros (with the forward's output product's types only).
     The forward and backward launch it from C (``launch_fwd``,
     ``launch_bwd``); this entry is for its checks. Takes the operand and
-    output types they use (see ``entity_attn_gemm``)."""
+    output types they use (see ``entity_attn_gemm``): float32 operands on
+    the FMA instance (C float32); bfloat16 operands on the tensor cores (C
+    float32, or bfloat16 with A k-contiguous)."""
     for op in (a, b, c):
         if op.flat.dtype not in _DTYPES:
             raise TypeError(f"gemm takes float32 or bfloat16, not {op.flat.dtype}")

@@ -11,13 +11,14 @@ variant's own directory under ``refil_torch/_build/`` (git-ignored). Then,
 twice over, each variant in turn: the entity-attention forward and backward
 in float32 at the combat slice's Bp 14,496, 4,832 and 8 (Ne 16, Nq 8, widths
 128) and Group Matching's 4,896 and 1,632 (Ne = Nq = 8, widths 64), and at
-14,496 in bfloat16 too, and the GRU
+14,496 and 4,832 in bfloat16 too (the products on the tensor cores), and the GRU
 forward and backward at (T, R) = (151, 768) and (151, 256), H 64, timed by
 CUDA events (``chip_smoke.cuda_time_ms``); a profile of one call each of the
-attention forward at 8, 1,632 and 4,832, the backward at 4,832 and the GRU backward
-at (151, 768) gives each stage kernel's device time; and the largest error of the
-attention forward at 4,832 and of the GRU backward at (151, 768) against
-the plain versions of their stages (a spot check: a variant worth keeping
+attention forward at 8, 1,632 and 4,832, the backward at 4,832 (both also in
+bfloat16) and the GRU backward at (151, 768) gives each stage kernel's device
+time; and the largest error of the attention forward at 4,832 (float32 and
+bfloat16, the bfloat16 backward's too) and of the GRU backward at (151, 768)
+against the plain versions of their stages (a spot check: a variant worth keeping
 goes into the sources and through ``chip_smoke.py``). Prints JSON lines;
 needs a CUDA device and nvcc.
 """
@@ -86,7 +87,8 @@ def main(argv) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
     from refil_torch.ops import _build, entity_attn, gru_kernel
-    from refil_torch.ops.attention import entity_attention_forward_staged
+    from refil_torch.ops.attention import (entity_attention_backward_staged,
+                                           entity_attention_forward_staged)
     from refil_torch.ops.gru import gru_backward_staged
 
     variants = json.load(open(argv[0]))
@@ -97,7 +99,7 @@ def main(argv) -> None:
     attn = {s: cs.make_inputs(s[0], s[1], s[2], s[3], s[3], s[3], torch.float32, 3,
                               mask_rows=s[1]) for s in ATTN_SHAPES}
     attn_bf16 = {s: cs.make_inputs(s[0], s[1], s[2], s[3], s[3], s[3], torch.bfloat16, 3,
-                                   mask_rows=s[1]) for s in ATTN_SHAPES[:1]}
+                                   mask_rows=s[1]) for s in ATTN_SHAPES[:2]}
     gru = {}
     for T, R in GRU_SHAPES:
         xs, wx, bx, wh, bhn, h0, g = cs.make_gru_inputs(T, R, cs.GRU_HIDDEN, torch.float32, 4)
@@ -111,7 +113,7 @@ def main(argv) -> None:
             entity_attn._LIB = gru_kernel._LIB = None
             gru_kernel.launch_plan.cache_clear()
             ms = {}
-            for s in ATTN_SHAPES[:1]:  # and the largest in bfloat16
+            for s in ATTN_SHAPES[:2]:  # and the combat learner's in bfloat16
                 ents, wi, wo, bo, pm, qm, g = attn_bf16[s]
                 ms[f"attn_fwd_{s[0]}_bf16"] = cs.cuda_time_ms(
                     lambda: entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, cs.HEADS))
@@ -140,6 +142,13 @@ def main(argv) -> None:
                     gru_kernel.kernel_backward(xw, hs, h0, wh, bhn, gg),
                     gru_backward_staged(xw, hs, h0, wh, bhn, gg))),
             }
+            eb, wib, wob, bob, pmb, qmb, gb = attn_bf16[ATTN_SHAPES[1]]
+            err["attn_fwd_bf16"] = cs.max_err(
+                entity_attn.kernel_forward(eb, wib, wob, bob, pmb, qmb, cs.HEADS),
+                entity_attention_forward_staged(eb, wib, wob, bob, pmb, qmb, cs.HEADS).out)
+            err["attn_bwd_bf16"] = max(cs.scaled_err(a, b) for a, b in zip(
+                entity_attn.kernel_backward(eb, wib, wob, pmb, qmb, gb, cs.HEADS),
+                entity_attention_backward_staged(eb, wib, wob, pmb, qmb, gb, cs.HEADS)))
             e8, w8, o8, b8, p8, q8, _ = attn[ATTN_SHAPES[2]]
             eg, wg, og, bg, pg, qg, _ = attn[ATTN_SHAPES[4]]
             stages = {
@@ -151,6 +160,10 @@ def main(argv) -> None:
                     lambda: entity_attn.kernel_forward(ents, wi, wo, bo, pm, qm, cs.HEADS)),
                 "attn_bwd_4832": stage_us(
                     lambda: entity_attn.kernel_backward(ents, wi, wo, pm, qm, g, cs.HEADS)),
+                "attn_fwd_4832_bf16": stage_us(
+                    lambda: entity_attn.kernel_forward(eb, wib, wob, bob, pmb, qmb, cs.HEADS)),
+                "attn_bwd_4832_bf16": stage_us(
+                    lambda: entity_attn.kernel_backward(eb, wib, wob, pmb, qmb, gb, cs.HEADS)),
                 "gru_bwd_151x768": stage_us(
                     lambda: gru_kernel.kernel_backward(xw, hs, h0, wh, bhn, gg)),
             }

@@ -206,8 +206,10 @@ def main(argv) -> None:
 
     stages = stage_seconds(kernels)
     gru_fwd = sum(t for name, (_, t) in by_name.items() if "gru_fwd_kernel" in name) / 1e6
-    # csrc/gemm.cuh's products, inside the attention's and the GRU's calls
-    gemm = sum(t for name, (_, t) in by_name.items() if "gemm::gemm_kernel" in name) / 1e6
+    # csrc/gemm.cuh's products, inside the attention's and the GRU's calls:
+    # both instances (gemm::gemm_kernel, f32 FMA; gemm::tc::gemm_kernel_tc,
+    # the bf16 tensor cores)
+    gemm = sum(t for name, (_, t) in by_name.items() if "gemm_kernel" in name) / 1e6
 
     def share(seconds):
         return seconds / (dev_us / 1e6) if dev_us else None
