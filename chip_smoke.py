@@ -37,9 +37,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      (the forward's output product with its bias, post-mask and bfloat16
      store) and at ragged ones. Times by CUDA events after warm-up: the
      kernel, the plain version and a PyTorch yardstick (attention: matmul +
-     scaled_dot_product_attention; GRU: cuDNN ``torch.nn.GRU``, beside the
-     hoisted input matmul plus the kernel), beside the least time the card
-     could take (``bound_ms``).
+     scaled_dot_product_attention; GRU: ``torch.nn.GRU`` in the kernel's
+     dtype, or, where PyTorch refuses that dtype, the refusal's text and
+     the float32 call, beside the hoisted input matmul plus the kernel),
+     beside the least time the card could take (``bound_ms``). The calls
+     of phase 4b's configurations, derived from their configs, are added
+     where no row above has their shape (``config_shapes``).
   4. fused slices, the default loop: ``refil_torch.main`` trains
      refil_group_matching (>= 8 learner updates), the flagship refil on
      entity_battle 3-8sz_symmetric at the config's full width (>= 2
@@ -54,6 +57,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      launches times its replays less the capture's one count) against the
      counts the run's shapes imply, and that every later block of a kind
      was a replay of one recorded block's launches.
+  4b. configs: every other combat configuration the JAX package ships
+     (``CONFIG_RUNS``), each through ``refil_torch.main`` at full width in
+     the fused loop under sc2custom: qmix_atten, vdn_atten and refil_vdn on
+     3-8sz_symmetric, refil on 3-8MMM_symmetric and 3-8csz_symmetric; each
+     >= 2 dispatches of >= 2 replayed train blocks, checked as phase 4's
+     runs, and every logged loss and grad_norm finite; prints env-steps/s,
+     seconds a replayed block, the train graph's pool and capture seconds;
+     then phase 6's graph-versus-eager pair for qmix_atten (FlexQMixer's
+     plain path, captured nowhere else); and the phase's seconds.
   5. classic slices: the same three configurations with
      ``use_fused_pipeline=False``, launch counts checked the same way.
   6. graph_vs_eager: one eager combat train block under
@@ -124,12 +136,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      each launch runs, are the ones its capture recorded, and no library
      attention or recurrence kernel (SDPA, flash, cuDNN) runs in it.
   15. the ``kernels`` line (launches from the fused combat run, with the
-     fused Group Matching and flat runs' and each scale run's beside them)
+     fused Group Matching and flat runs' and each config and scale run's
+     beside them)
      and the last line
      ``{"ok": true, "device": ...}``.
 
-Each phase that drives a path (4, 5, 6, both runs of 7, 8's resume, 9,
-the runs of 10, 11 and 12, and each run of 13 and its pair)
+Each phase that drives a path (4, each run of 4b and its pair, 5, 6, both
+runs of 7, 8's resume, 9, the runs of 10, 11 and 12, and each run of 13
+and its pair)
 sets the launch counts to 0 just before it and reads them just after (8's
 preempted run is another process, whose counts this one cannot read). It exits non-zero, printing no result, where CUDA
 is not available or the ``refil_torch`` package is not beside it.
@@ -259,18 +273,115 @@ SCALE_RUNS = {
 SCALE_BLOCKS = 9
 
 
-def scale_argv(name):
-    """The command line of a scale run, its t_max and test_interval from
-    its config's batch_size_run and episode_limit."""
+def blocks_t_max(argv, blocks):
+    """``blocks`` full blocks of env steps under ``argv``: blocks x
+    batch_size_run x episode_limit."""
     from refil_torch.config import load_config
     from refil_torch.main import parse_cli
 
-    argv = SCALE_RUNS[name][1]
     alg, env, overrides = parse_cli(argv)
     cfg = load_config(alg=alg, env=env, overrides=overrides)
-    t_max = SCALE_BLOCKS * cfg["batch_size_run"] * cfg["env_args"]["episode_limit"]
+    return blocks * cfg["batch_size_run"] * cfg["env_args"]["episode_limit"]
+
+
+def scale_argv(name):
+    """The command line of a scale run, its t_max and test_interval from
+    its config's batch_size_run and episode_limit."""
+    argv = SCALE_RUNS[name][1]
+    t_max = blocks_t_max(argv, SCALE_BLOCKS)
     return [*argv, f"t_max={t_max}", f"test_interval={t_max // 2}", "use_cuda=True",
             f"local_results_path={os.path.join(SMOKE_RESULTS, name)}"]
+
+
+# Every other combat configuration the JAX package ships (phase 4b), each
+# through the port's CLI at full width in the fused loop under sc2custom, as
+# the learning runs take it: qmix_atten (the agent without imagination,
+# FlexQMixer's plain path), vdn_atten (VDNMixer) and refil_vdn (REFIL's
+# imagined loss through VDNMixer) on 3-8sz_symmetric, and refil on the
+# 3-8MMM_symmetric and 3-8csz_symmetric sets. Each value: (the key of its
+# launch counts in PER_ITER, its command line).
+CONFIG_RUNS = {
+    "qmix_atten_sz": ("qmix_atten", ["--config=qmix_atten", "--env-config=sc2custom", "with",
+                                     "scenario=3-8sz_symmetric"]),
+    "vdn_atten_sz": ("vdn_atten", ["--config=vdn_atten", "--env-config=sc2custom", "with",
+                                   "scenario=3-8sz_symmetric"]),
+    "refil_vdn_sz": ("refil_vdn", ["--config=refil_vdn", "--env-config=sc2custom", "with",
+                                   "scenario=3-8sz_symmetric"]),
+    "refil_mmm": ("combat", ["--config=refil", "--env-config=sc2custom", "with",
+                             "scenario=3-8MMM_symmetric"]),
+    "refil_csz": ("combat", ["--config=refil", "--env-config=sc2custom", "with",
+                             "scenario=3-8csz_symmetric"]),
+}
+# t_max = CONFIG_BLOCKS x batch_size_run x episode_limit env steps: after
+# the 4 warm-up blocks (batch_size 32 of batch_size_run 8) the first train
+# dispatch holds >= 4 blocks (the eager first, the captured one and >= 2
+# replays) and the next >= 2 replays, whatever the episodes' lengths
+CONFIG_BLOCKS = 10
+
+
+def config_argv(name):
+    """The command line of a CONFIG_RUNS run, its t_max from its config's
+    batch_size_run and episode_limit."""
+    argv = CONFIG_RUNS[name][1]
+    return [*argv, f"t_max={blocks_t_max(argv, CONFIG_BLOCKS)}", "use_cuda=True",
+            f"local_results_path={os.path.join(SMOKE_RESULTS, name)}"]
+
+
+def config_calls(name):
+    """Every entity-attention call ((tag, Bp, Ne, Nq, pre-mask rows, width))
+    and GRU call ((tag, T, R)) of a CONFIG_RUNS run, from its config and its
+    env's sizes: the live agent over the sampled episodes (x3 where it
+    imagines), the target agent, FlexQMixer's hypernets on the trained steps
+    (Na-row pre-masks; square on the imagined path) and the target mixer's
+    on all of them (VDNMixer calls none), and a rollout step at each width
+    the fused loop rolls out."""
+    from refil_torch.config import args_sanity_check, config_to_args, load_config
+    from refil_torch.main import parse_cli
+    from refil_torch.run import build_env
+
+    argv = config_argv(name)
+    alg, env, overrides = parse_cli(argv)
+    args = config_to_args(args_sanity_check(load_config(alg=alg, env=env,
+                                                        overrides=overrides)))
+    info = build_env(args, torch.device("cpu")).env_info()
+    na, ne, steps = info["n_agents"], info["n_entities"], info["episode_limit"]
+    bs, x = args.batch_size, 3 if "imagine" in args.agent else 1
+    w = args.attn_embed_dim
+    attn = [("agent", x * bs * (steps + 1), ne, na, ne, w),
+            ("target_agent", bs * (steps + 1), ne, na, ne, w)]
+    gru = [("agent", steps + 1, x * bs * na), ("target_agent", steps + 1, bs * na)]
+    if args.mixer == "flex_qmix":
+        hw = args.hypernet_embed
+        attn += [("mixer", bs * steps, ne, na, na, hw),
+                 ("target_mixer", bs * (steps + 1), ne, na, na, hw)]
+        if x == 3:
+            attn.append(("mixer_imagined", bs * steps, ne, na, ne, hw))
+    for tag, envs in fused_widths(argv).items():
+        attn.append((tag, envs, ne, na, ne, w))
+        gru.append((tag, 1, envs * na))
+    return attn, gru
+
+
+def config_shapes(attn_rows, gru_rows):
+    """The calls of every CONFIG_RUNS run that ``attn_rows`` and ``gru_rows``
+    (phase 3's) do not already hold, by shape; prints every run's calls and
+    the new ones (``config_shapes``)."""
+    have_a = {tuple(r[2:]) for r in attn_rows}
+    have_g = {tuple(r[1:]) for r in gru_rows}
+    new_a, new_g, calls = [], [], {}
+    for name in CONFIG_RUNS:
+        attn, gru = config_calls(name)
+        calls[name] = {"attention": attn, "gru": gru}
+        for tag, *shape in attn:
+            if tuple(shape) not in have_a:
+                have_a.add(tuple(shape))
+                new_a.append((name, tag, *shape))
+        for tag, *shape in gru:
+            if tuple(shape) not in have_g:
+                have_g.add(tuple(shape))
+                new_g.append((f"{name}_{tag}", *shape))
+    emit("config_shapes", calls=calls, new_attention=new_a, new_gru=new_g)
+    return new_a, new_g
 
 
 def eval_argv(checkpoint_path, load_step):
@@ -878,6 +989,25 @@ def library_gru(xs, wi, bi, wh, bhn, h0):
     return gru
 
 
+def time_library_gru(xs, wi, bi, wh, bhn, h0, gout, hs_ref, dtype):
+    """``torch.nn.GRU`` (``library_gru``) in ``dtype`` on the same inputs:
+    its forward's max abs difference from ``hs_ref``, and its forward and
+    backward timed (``fwd_library``, ``bwd_library``)."""
+    gru = library_gru(xs, wi, bi, wh, bhn, h0).to(dtype)
+    h0_l = h0[None].to(dtype)
+    xs_l = xs.detach().clone().requires_grad_(True)
+    out_l, _ = gru(xs_l, h0_l)
+    lib_leaves = [xs_l, *gru.parameters()]
+    gl = gout.transpose(0, 1)
+    torch.autograd.grad(out_l, lib_leaves, gl, retain_graph=True)
+    torch.cuda.synchronize()
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "err": max_err(out_l.transpose(0, 1), hs_ref),
+            "fwd_library": cuda_time_ms(lambda: gru(xs, h0_l)),
+            "bwd_library": cuda_time_ms(
+                lambda: torch.autograd.grad(out_l, lib_leaves, gl, retain_graph=True))}
+
+
 def check_gru(tag, T, R, H, dtype, seed=0, timing=False, path="combat"):
     from refil_torch.ops import gru_kernel
     from refil_torch.ops.gru import gru_backward_staged as staged
@@ -926,16 +1056,18 @@ def check_gru(tag, T, R, H, dtype, seed=0, timing=False, path="combat"):
             "bwd_device": device_ms(
                 lambda: gru_kernel.kernel_backward(xw, hs_k, h0, wh, bhn, gout)),
         }
-        if dtype == torch.float32:  # cuDNN's GRU in float32 only
-            gru = library_gru(xs, wi, bi, wh, bhn, h0)
-            xs_l = xs.detach().clone().requires_grad_(True)
-            out_l, _ = gru(xs_l, h0[None])
-            row["library_fwd_max_abs_err"] = max_err(out_l.transpose(0, 1), hs_p)
-            lib_leaves = [xs_l, *gru.parameters()]
-            gl = gout.transpose(0, 1)
-            ms["fwd_library"] = cuda_time_ms(lambda: gru(xs, h0[None]))
-            ms["bwd_library"] = cuda_time_ms(
-                lambda: torch.autograd.grad(out_l, lib_leaves, gl, retain_graph=True))
+        # torch.nn.GRU in the kernel's dtype; where PyTorch refuses that
+        # dtype, the refusal's text and the float32 call as the yardstick
+        try:
+            lib = time_library_gru(xs, wi, bi, wh, bhn, h0, gout, hs_p, dtype)
+        except RuntimeError as e:
+            if dtype == torch.float32:
+                raise
+            row["library_refused"] = f"{type(e).__name__}: {e}"
+            lib = time_library_gru(xs.float(), wi, bi, wh, bhn, h0, gout.float(),
+                                   hs_p.float(), torch.float32)
+        row["library_dtype"], row["library_fwd_max_abs_err"] = lib.pop("dtype"), lib.pop("err")
+        ms.update(lib)
         row["ms"] = ms
         for kind in ("fwd", "bwd"):
             nbytes, flops = gru_cost(T, R, H, dtype, kind == "bwd")
@@ -1032,13 +1164,28 @@ def phase_kernels(attn_rows, gru_rows):
 # is one attention forward, and on combat one GRU forward (T = 1).
 # qmix on the flat env: no attention; 2 GRU forwards (live and target
 # agent) and 1 backward an iteration, one GRU forward (T = 1) a rollout step.
+# The other combat configurations (CONFIG_RUNS; refil on MMM and csz is
+# "combat"): qmix_atten 10 forward and 5 backward attention calls (agent
+# fwd+bwd, target agent fwd, mixer hyper_w_1, hyper_b_1, hyper_w_final, V
+# fwd+bwd, target mixer 4 fwd); vdn_atten and refil_vdn 2 and 1 (the agent,
+# x3 for refil_vdn in one call, fwd+bwd, and the target agent fwd: VDNMixer
+# is a sum); each 2 GRU forwards and 1 backward, a rollout step as combat's.
 PER_ITER = {"group_matching": {"entity_attn_fwd": 9, "entity_attn_bwd": 6},
             "combat": {"entity_attn_fwd": 15, "entity_attn_bwd": 10, "gru_fwd": 2,
                        "gru_bwd": 1},
-            "flat": {"gru_fwd": 2, "gru_bwd": 1}}
+            "flat": {"gru_fwd": 2, "gru_bwd": 1},
+            "qmix_atten": {"entity_attn_fwd": 10, "entity_attn_bwd": 5, "gru_fwd": 2,
+                           "gru_bwd": 1},
+            "vdn_atten": {"entity_attn_fwd": 2, "entity_attn_bwd": 1, "gru_fwd": 2,
+                          "gru_bwd": 1},
+            "refil_vdn": {"entity_attn_fwd": 2, "entity_attn_bwd": 1, "gru_fwd": 2,
+                          "gru_bwd": 1}}
 PER_STEP = {"group_matching": {"entity_attn_fwd": 1},
-            "combat": {"entity_attn_fwd": 1, "gru_fwd": 1}, "flat": {"gru_fwd": 1}}
-PER_DIAG = {"group_matching": {"entity_attn_fwd": 8}, "combat": {}, "flat": {}}
+            "combat": {"entity_attn_fwd": 1, "gru_fwd": 1}, "flat": {"gru_fwd": 1},
+            **{k: {"entity_attn_fwd": 1, "gru_fwd": 1}
+               for k in ("qmix_atten", "vdn_atten", "refil_vdn")}}
+PER_DIAG = {"group_matching": {"entity_attn_fwd": 8}, "combat": {}, "flat": {},
+            "qmix_atten": {}, "vdn_atten": {}, "refil_vdn": {}}
 GM_T_MAX = 8000  # 20 blocks of 400 env steps, 4 of them warm-up: 16 learner updates
 # blocks of <= 8 x 150 env steps run while t_env <= 7200: >= 7 blocks; the
 # ring holds batch_size 32 episodes after 4 blocks, so the classic loop,
@@ -1185,6 +1332,27 @@ def phase_fused(path, name_power):
     return launches
 
 
+def phase_configs(name_power):
+    """Phase 4b: each of CONFIG_RUNS through ``refil_torch.main``, launch
+    counts reset before it and read after it, checked as a slice's
+    (launches against the counts its shapes imply, finite last loss, every
+    later block of a kind a replay of the recorded launches) and by
+    ``checked_run``. Prints (``config_run``, ``graphs`` and ``config``
+    lines) its env-steps/s (whole run and replayed train blocks), seconds a
+    replayed block, dispatches, last metrics, the graphs' pools and capture
+    seconds and the test rollouts. Then a replayed train block against an
+    eager one from one cloned state for qmix_atten, whose mixer path no
+    other phase captures (``phase_graph_vs_eager``), and the phase's
+    seconds. Returns each run's launches."""
+    t0 = time.perf_counter()
+    launches = {name: checked_run("config", name, path, config_argv(name), name_power)
+                for name, (path, _) in CONFIG_RUNS.items()}
+    phase_graph_vs_eager(name_power, CONFIG_RUNS["qmix_atten_sz"][1],
+                         phase="config_graph_vs_eager", path="qmix_atten")
+    emit("configs_phase", card=name_power, seconds=time.perf_counter() - t0)
+    return launches
+
+
 def phase_classic(path, name_power):
     argv = slice_argv(path, fused=False)
     if path in ("group_matching", "flat"):
@@ -1209,7 +1377,7 @@ def state_tensors(ps):
     return out
 
 
-def phase_graph_vs_eager(name_power, argv=None, phase="graph_vs_eager"):
+def phase_graph_vs_eager(name_power, argv=None, phase="graph_vs_eager", path="combat"):
     """One combat train block eagerly and one as a graph replay, from one
     cloned state and cloned generator states: the ring planes and counters
     equal, the parameters, targets and optimiser state within 1e-4 of
@@ -1219,7 +1387,8 @@ def phase_graph_vs_eager(name_power, argv=None, phase="graph_vs_eager"):
     different actions (the generators are registered with the graph).
     ``argv``: the combat command line whose pipeline this builds (default:
     refil on 3-8sz_symmetric, whose pipeline then also restores a
-    checkpoint in place). Returns the pipeline and its state, for
+    checkpoint in place), ``path`` the key of its launch counts in
+    PER_ITER. Returns the pipeline and its state, for
     ``own_kernels_only``."""
     from refil_torch import config as tconfig
     from refil_torch import run as trun
@@ -1284,8 +1453,8 @@ def phase_graph_vs_eager(name_power, argv=None, phase="graph_vs_eager"):
     T = runner.episode_limit
     n_train = 1 + 1 + 1 + 1  # sync-checked, eager, captured and replayed, replayed
     expected = {k: warm * a + n_train * b for (k, a), b in zip(
-        expected_launches("combat", 0, T, 0).items(),
-        expected_launches("combat", args.training_iters, T, 0).values())}
+        expected_launches(path, 0, T, 0).items(),
+        expected_launches(path, args.training_iters, T, 0).values())}
     tol = 1e-4
     ok = (all(exact.values()) and all(v <= tol for v in scaled.values()) and stats_equal
           and differ > 0 and launches == expected)
@@ -1818,6 +1987,35 @@ def _replayed(summary):
     return sum(d["replay_seconds"] for d in train) / blocks if blocks else None
 
 
+def checked_run(phase, name, path, argv, name_power, extra=lambda summary: ({}, {})):
+    """One run of phase 4b or 13 through ``run_slice`` (its ``<phase>_run``
+    line holds the rates, dispatches and last metrics, the ``graphs`` line
+    the captures), its results in a fresh directory; then >= 2 dispatches of
+    >= 2 replayed train blocks, every logged loss and grad_norm finite, on
+    combat a battle_won_mean logged, and the checks ``extra(summary)``
+    returns beside its fields for the ``<phase>`` line. Returns the run's
+    launches."""
+    out = fresh_dir(os.path.join(SMOKE_RESULTS, name))
+    summary, launches = run_slice(path, argv, name_power, 4, phase=f"{phase}_run")
+    replayed = [d["replays"] for d in summary["dispatches"] if d["train"]]
+    logged_vals = {k: [v for _, v in logged(out, k)] for k in ("loss", "grad_norm")}
+    row, more = extra(summary)
+    checks = {
+        "two_dispatches_of_two_replays": sum(r >= 2 for r in replayed) >= 2,
+        "finite_losses": all(vals and all(map(math.isfinite, vals))
+                             for vals in logged_vals.values()),
+        "battle_won_logged": (path == "group_matching"
+                              or "battle_won_mean" in summary["last_logged"]),
+        **more,
+    }
+    emit(phase, ok=all(checks.values()), checks=checks, run=name, card=name_power,
+         replays_per_train_dispatch=replayed, tests=summary["tests"],
+         losses_logged=len(logged_vals["loss"]), **row)
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} {name}: failed {[k for k, v in checks.items() if not v]}")
+    return launches
+
+
 def phase_scale(name_power):
     """Each of SCALE_RUNS through ``refil_torch.main``, launch counts reset
     before it and read after it, checked as a slice's (launches, finite last
@@ -1834,44 +2032,32 @@ def phase_scale(name_power):
     launches = {}
     for name, (path, _) in SCALE_RUNS.items():
         argv = scale_argv(name)
-        out = fresh_dir(os.path.join(SMOKE_RESULTS, name))
+        bsr = n_test_episodes(argv)[0]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
-        summary, launches[name] = run_slice(path, argv, name_power, 4, phase="scale_run")
-        bsr = n_test_episodes(argv)[0]
-        replayed = [d["replays"] for d in summary["dispatches"] if d["train"]]
-        logged_vals = {k: [v for _, v in logged(out, k)] for k in ("loss", "grad_norm")}
-        # the scale_run line before it holds the rates, dispatches and last
-        # metrics, the graphs line the captures
-        row = dict(run=name, card=name_power, batch_size_run=bsr,
-                   replays_per_train_dispatch=replayed, tests=summary["tests"],
-                   ring_bytes=summary["ring_bytes"], allocated_before_bytes=before,
-                   max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   max_memory_reserved=torch.cuda.max_memory_reserved(),
-                   losses_logged=len(logged_vals["loss"]))
-        checks = {
-            "two_dispatches_of_two_replays": sum(r >= 2 for r in replayed) >= 2,
-            "b_wide_test_rollout": bool(summary["tests"]) and all(
-                t["episodes"] == bsr for t in summary["tests"]),
-            "finite_losses": all(vals and all(map(math.isfinite, vals))
-                                 for vals in logged_vals.values()),
-            "battle_won_logged": path != "combat" or "battle_won_mean" in summary["last_logged"],
-        }
-        emit("scale", ok=all(checks.values()), checks=checks, **row)
-        if not all(checks.values()):
-            raise AssertionError(f"scale {name}: failed {[k for k, v in checks.items() if not v]}")
+
+        def memory_and_tests(summary):
+            row = dict(batch_size_run=bsr, ring_bytes=summary["ring_bytes"],
+                       allocated_before_bytes=before,
+                       max_memory_allocated=torch.cuda.max_memory_allocated(),
+                       max_memory_reserved=torch.cuda.max_memory_reserved())
+            return row, {"b_wide_test_rollout": bool(summary["tests"]) and all(
+                t["episodes"] == bsr for t in summary["tests"])}
+
+        launches[name] = checked_run("scale", name, path, argv, name_power, memory_and_tests)
     phase_graph_vs_eager(name_power, SCALE_RUNS["combat_b512_bf16"][1],
                          phase="scale_graph_vs_eager")
     emit("scale_phase", card=name_power, seconds=time.perf_counter() - t0)
     return launches
 
 
-def kernels_line(rows, launches_by_path, launches_by_scale_run):
+def kernels_line(rows, launches_by_path, launches_by_run):
     """One entry per ported kernel, its numbers from the largest call of the
     combat slice in float32 (attention: agent x3, Bp = 14496; GRU: agent x3,
     T = 151, R = 768); ``launches`` from the combat slice's run, and the
-    Group Matching and flat slices' and each scale run's beside it."""
+    Group Matching and flat slices' and each config and scale run's beside
+    it."""
     attn = next(r for r in rows if r["kernel"] == "entity_attn" and r["path"] == "combat"
                 and r["case"] == "agent_x3" and r["dtype"] == "float32")
     gru = next(r for r in rows if r["kernel"] == "gru" and r["case"] == "agent_x3"
@@ -1892,7 +2078,7 @@ def kernels_line(rows, launches_by_path, launches_by_scale_run):
             "launches": launches_by_path["combat"][name],
             "launches_group_matching": launches_by_path["group_matching"][name],
             "launches_flat": launches_by_path["flat"][name],
-            **{f"launches_{run}": n[name] for run, n in launches_by_scale_run.items()},
+            **{f"launches_{run}": n[name] for run, n in launches_by_run.items()},
             "max_abs_err": row[f"{kind}_max_abs_err"], "ms": row["ms"][kind],
             "plain_ms": row["ms"][f"{kind}_plain"], "bound_ms": row[f"{kind}_bound_ms"],
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row["ms"][f"{kind}_library"],
@@ -1900,7 +2086,9 @@ def kernels_line(rows, launches_by_path, launches_by_scale_run):
             "bf16": {"max_abs_err": b[f"{kind}_max_abs_err"], "ms": b["ms"][kind],
                      "plain_ms": b["ms"][f"{kind}_plain"], "bound_ms": b[f"{kind}_bound_ms"],
                      "bound_by": b[f"{kind}_bound_by"],
-                     "library_ms": b["ms"].get(f"{kind}_library")},
+                     "library_ms": b["ms"][f"{kind}_library"],
+                     # the GRU's yardstick is float32's where PyTorch refuses bf16
+                     "library_dtype": b.get("library_dtype", "bfloat16")},
         })
     return {"kernels": out}
 
@@ -1915,11 +2103,14 @@ def main(argv) -> None:
     sys.path.insert(0, HERE)
     name_power = phase_device()
     attn_rows, gru_rows = attn_shapes(), gru_shapes()
+    new_attn, new_gru = config_shapes(attn_rows, gru_rows)
+    attn_rows, gru_rows = attn_rows + new_attn, gru_rows + new_gru
     phase_sass(phase_build(attn_rows, gru_rows))
     rows = phase_kernels(attn_rows, gru_rows)
     replay = None
     if not kernels_only:
         launches = {path: phase_fused(path, name_power) for path in SLICES}
+        configs = phase_configs(name_power)
         for path in SLICES:
             phase_classic(path, name_power)
         replay = (*phase_graph_vs_eager(name_power), name_power)
@@ -1936,7 +2127,7 @@ def main(argv) -> None:
     if kernels_only:
         return
     print(name_power, flush=True)
-    print(json.dumps(kernels_line(rows, launches, scale)), flush=True)
+    print(json.dumps(kernels_line(rows, launches, {**configs, **scale})), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

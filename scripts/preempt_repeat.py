@@ -17,7 +17,7 @@ import chip_smoke  # noqa: E402
 def main(argv) -> int:
     n = int(argv[0]) if argv else 3
     name_power = chip_smoke.phase_device()
-    chip_smoke.phase_build(chip_smoke.attn_shapes())
+    chip_smoke.phase_build(chip_smoke.attn_shapes(), chip_smoke.gru_shapes())
     fails = 0
     for i in range(n):
         try:

@@ -5,6 +5,7 @@ path's pieces refused on the entity scheme, and the rule that the port
 imports nothing of JAX."""
 import ast
 import glob
+import importlib.util
 import math
 import os
 
@@ -35,10 +36,22 @@ def test_cli_trains_on_cpu(tmp_path, alg):
     assert len(metrics) == 1 and os.path.getsize(metrics[0]) > 0
 
 
-def test_cli_trains_combat_on_cpu(tmp_path):
-    """The slice-2 command, ``refil`` on entity_battle 3-8sz_symmetric, at
-    narrow widths and a short episode limit."""
-    argv = ["--config=refil", "--env-config=entity_battle", "with", "scenario=3-8sz_symmetric",
+# (config, env config, scenario set): the slice-2 command, refil on
+# entity_battle 3-8sz_symmetric, and every other combat configuration the
+# JAX package ships, under sc2custom as the learning runs take them
+COMBAT_CONFIGS = [("refil", "entity_battle", "3-8sz_symmetric"),
+                  ("qmix_atten", "sc2custom", "3-8sz_symmetric"),
+                  ("vdn_atten", "sc2custom", "3-8sz_symmetric"),
+                  ("refil_vdn", "sc2custom", "3-8sz_symmetric"),
+                  ("refil", "sc2custom", "3-8MMM_symmetric"),
+                  ("refil", "sc2custom", "3-8csz_symmetric")]
+
+
+@pytest.mark.parametrize("alg,env,scenario", COMBAT_CONFIGS)
+def test_cli_trains_combat_on_cpu(tmp_path, alg, env, scenario):
+    """Each combat configuration through the CLI at narrow widths and a
+    short episode limit."""
+    argv = [f"--config={alg}", f"--env-config={env}", "with", f"scenario={scenario}",
             *TINY, "use_cuda=False", f"local_results_path={tmp_path}"]
     summary = tmain.main(argv)
     assert summary["device"] == "cpu" and summary["episode_limit"] == 10
@@ -48,6 +61,44 @@ def test_cli_trains_combat_on_cpu(tmp_path):
     # the runner accounts the env's final-info keys and its battle stats
     for k in ("battle_won_mean", "episode_limit_mean", "test_battle_won_mean", "win_rate"):
         assert k in summary["last_logged"], k
+
+
+def _learning_script():
+    spec = importlib.util.spec_from_file_location(
+        "learning_runs_torch_combat", os.path.join(ROOT, "scripts", "learning_runs_torch_combat.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("argv,want,name,refs", [
+    ([], ("refil", "3-8sz_symmetric", 0, 1_600_000), "refil_sz_s0", ["refil_sz", "refil_sz_s1"]),
+    (["--config", "qmix_atten", "--t-max", "3800000"],
+     ("qmix_atten", "3-8sz_symmetric", 0, 3_800_000), "qmix_atten_sz_s0",
+     ["qmix_atten_sz", "qmix_atten_sz_s1"]),
+    (["--config", "qmix_atten", "--scenario", "3-8MMM_symmetric"],
+     ("qmix_atten", "3-8MMM_symmetric", 0, 1_600_000), "qmix_atten_mmm_s0", ["qmix_atten_mmm"]),
+    (["--scenario", "3-8csz_symmetric", "--seed", "1", "lr=0.001"],
+     ("refil", "3-8csz_symmetric", 1, 1_600_000, "lr=0.001"), "refil_csz_s1", ["refil_csz"]),
+    (["--config", "vdn_atten"], ("vdn_atten", "3-8sz_symmetric", 0, 1_600_000),
+     "vdn_atten_sz_s0", []),
+])
+def test_learning_script_maps_its_arguments(tmp_path, argv, want, name, refs):
+    """``scripts/learning_runs_torch_combat.py``'s arguments to the CLI's
+    argv (the shipped config under sc2custom, only scenario, seed and t_max
+    set, then the extra overrides), the run's name and the reference runs
+    (every seed of the config and set in results/r5_runs); no run starts."""
+    mod = _learning_script()
+    got_name, cli, got_refs = mod.plan(mod.parse([str(tmp_path), *argv]))
+    config, scenario, seed, t_max, *extra = want
+    assert got_name == name
+    assert cli == [f"--config={config}", "--env-config=sc2custom", "with",
+                   f"scenario={scenario}", f"seed={seed}", f"t_max={t_max}", f"name={name}",
+                   f"local_results_path={os.path.join(tmp_path, name)}", *extra]
+    assert tmain.parse_cli(cli)[:2] == (config, "sc2custom")
+    assert [os.path.basename(d) for d in got_refs.values()] == refs
+    for d in got_refs.values():  # each names a committed reference run with a curve
+        assert mod.curve(os.path.join(ROOT, d)), d
 
 
 def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):

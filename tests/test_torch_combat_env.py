@@ -1,8 +1,9 @@
 """refil_torch's combat env against refil_tpu's on the same draws: the reset
 given the draws JAX takes from its key splits, then 40 steps of the same
-random legal actions, on three scenario sets (Marines; Stalkers and Zealots;
-Marines, Marauders and Medivacs, whose heal branch runs) at three difficulty
-tiers. Bool and int planes equal, float planes within 1e-5.
+random legal actions, on five scenario sets (Marines; Stalkers and Zealots;
+Marines, Marauders and Medivacs, whose heal branch runs; Stalkers, Zealots and
+Colossi; and the asymmetric 6-11m_mandown, one Marine fewer than the enemy)
+at three difficulty tiers. Bool and int planes equal, float planes within 1e-5.
 
 A trajectory is a chain of range checks that one ulp can flip some steps
 later, so both sides compute op by op: the JAX step is compiled without
@@ -61,7 +62,8 @@ def _from_jax(jstate, like):
 
 
 @pytest.mark.parametrize("difficulty", ["1", "7", "A"])
-@pytest.mark.parametrize("scenario", ["1-5m_symmetric", "3-8sz_symmetric", "3-8MMM_symmetric"])
+@pytest.mark.parametrize("scenario", ["1-5m_symmetric", "3-8sz_symmetric", "3-8MMM_symmetric",
+                                      "3-8csz_symmetric", "6-11m_mandown"])
 def test_combat_env_matches_jax(scenario, difficulty):
     check_env(scenario, difficulty, zlib.crc32((scenario + difficulty).encode()) % 1000)
 
