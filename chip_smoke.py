@@ -22,7 +22,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      and batches that are not a multiple of the block's samples, one of them
      at the combat widths; and REFIL's own Group Matching pre-masks, the
      imagined groups' and the ground-truth groups', from
-     ``build_imagine_masks``), each also held to the plain version of its
+     ``build_imagine_masks``; and REFIL's square imagined pre-masks at the
+     combat learner's shapes (the agent x3 call and both imagined hypernet
+     calls) from rollouts of 3-8MMM_symmetric and 3-8csz_symmetric in which
+     units die, each row with the rollout's dead share and its
+     ``blocked_row_share`` (``combat_imagined_masks`` lines)), each also
+     held to the plain version of its
      stages (``entity_attention_forward_staged``,
      ``entity_attention_backward_staged``) and called twice for identical
      bits; the GRU forward and backward at every shape of the combat slice,
@@ -1122,8 +1127,96 @@ def imagined_masks_cases(dtype=torch.float32):
     return rows
 
 
-def phase_kernels(attn_rows, gru_rows):
+def combat_rollout_masks(cfg, scenario, B, seed, device="cuda"):
+    """(obs_mask (B, T+1, Ne, Ne), entity_mask (B, T+1, Ne), dead share, Na): B
+    episodes of ``EntityBattle`` on ``scenario`` under the config's env_args,
+    each agent taking a uniform available action (the learner's first
+    episodes, at epsilon 1), the steps after an episode's end zeroed as the
+    runner stores them. The dead share is that of the present entity-steps
+    of the episodes whose unit is dead (its obs_mask row blocks every other
+    entity)."""
+    from refil_torch.envs.combat.env import EntityBattle
+    from refil_torch.envs.combat.scenarios import SCENARIO_REGISTRY
+
+    env = EntityBattle(**{**cfg["env_args"], "scenario_dict": SCENARIO_REGISTRY[scenario]()},
+                       device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state, obs = env.reset(B, generator=gen)
+    alive = torch.ones(B, dtype=torch.bool, device=device)
+    oms, ems, fills = [obs["obs_mask"]], [obs["entity_mask"]], [alive]
+    for _ in range(env.episode_limit):
+        avail = obs["avail_actions"]
+        pick = torch.multinomial(avail.reshape(-1, avail.shape[-1]).float(), 1, generator=gen)
+        state, obs, _, done, _ = env.step(state, pick.reshape(avail.shape[:2]))
+        oms.append(obs["obs_mask"] & alive[:, None, None])
+        ems.append(obs["entity_mask"] & alive[:, None])
+        fills.append(alive)
+        alive = alive & ~done
+    om, em, filled = torch.stack(oms, 1), torch.stack(ems, 1), torch.stack(fills, 1)
+    dead = (om | torch.eye(om.shape[-1], dtype=torch.bool, device=device)).all(-1) & ~em
+    present = ~em & filled[..., None]
+    return om, em, float(dead[present].float().mean()), env.env_info()["n_agents"]
+
+
+# REFIL's imagined masks on the combat sets whose units differ most from
+# 3-8sz's, Medivacs (which heal) and Colossi, by their short names
+COMBAT_IMAGINED_SETS = {"3-8MMM_symmetric": "mmm", "3-8csz_symmetric": "csz"}
+
+
+def combat_imagined_masks():
+    """{scenario: (config, obs_mask, entity_mask, dead share, Na, imagine
+    masks)}: one batch of the refil learner's (under sc2custom) a set, the
+    bipartition drawn from a generator as the learner draws it."""
+    from refil_torch.config import load_config
+    from refil_torch.ops.masks import build_imagine_masks
+
+    out = {}
+    for s, scenario in enumerate(COMBAT_IMAGINED_SETS):
+        cfg = load_config(alg="refil", env="sc2custom", overrides=[f"scenario={scenario}"])
+        om, em, dead, na = combat_rollout_masks(cfg, scenario, cfg["batch_size"], seed=40 + s)
+        out[scenario] = (cfg, om, em, dead, na, build_imagine_masks(
+            om, em, na, agent_rows=False,
+            generator=torch.Generator(device="cuda").manual_seed(50 + s)))
+    return out
+
+
+def combat_imagined_masks_cases(imagined, dtype=torch.float32):
+    """The attention kernel on REFIL's own pre-masks at the combat learner's
+    shapes (refil under sc2custom: batch 32 of 151 steps, Ne 16, Na 8, widths
+    128), from rollouts of ``COMBAT_IMAGINED_SETS`` in which units die
+    (``imagined``, ``combat_imagined_masks()``): ``build_imagine_masks`` on
+    their obs and entity masks; the agent x3 call
+    with the square pre-masks the RNN agent takes (full view, within,
+    interact: Bp 14,496, 16 rows) and both imagined hypernet calls (within
+    and interact, no obs mask: Bp 4,800 of the 150 trained steps, 16 rows),
+    each post-masked by the agents' entity mask. Forward and gradients
+    against the plain version, as ``check_case`` does; each row also carries
+    its set and the rollout's dead share beside ``blocked_row_share``."""
     rows = []
+    for s, (scenario, (cfg, om, em, dead, Na, m)) in enumerate(imagined.items()):
+        Ne = em.shape[-1]
+        post = em[..., :Na]
+        cases = [("agent_x3", cfg["attn_embed_dim"],
+                  torch.cat([om, m.within, m.interact]).reshape(-1, Ne, Ne),
+                  torch.cat([post] * 3).reshape(-1, Na))]
+        for half, mm in (("within", m.w_noobs), ("interact", m.i_noobs)):
+            cases.append((f"mixer_imagined_{half}", cfg["hypernet_embed"],
+                          mm[:, :-1].reshape(-1, Ne, Ne), post[:, :-1].reshape(-1, Na)))
+        short = COMBAT_IMAGINED_SETS[scenario]
+        for i, (tag, W, pre, qm) in enumerate(cases):
+            row = check_case(f"{tag}_{short}", pre.shape[0], Ne, Na, W, W, W, HEADS, dtype,
+                             mask_rows=Ne, seed=80 + 3 * s + i, path="combat_imagined",
+                             masks=(pre.contiguous(), qm.contiguous()))
+            row.update(scenario=scenario, dead_share=dead)
+            emit("combat_imagined_masks", scenario=scenario, case=row["case"],
+                 dtype=row["dtype"], Bp=row["Bp"], dead_share=dead,
+                 blocked_row_share=row["blocked_row_share"])
+            rows.append(row)
+    return rows
+
+
+def phase_kernels(attn_rows, gru_rows):
+    rows, imagined = [], combat_imagined_masks()
     for dtype in (torch.float32, torch.bfloat16):
         for i, (path, tag, Bp, ne, nq, mrows, w) in enumerate(attn_rows):
             rows.append(check_case(tag, Bp, ne, nq, w, w, w, HEADS, dtype, mask_rows=mrows,
@@ -1138,6 +1231,7 @@ def phase_kernels(attn_rows, gru_rows):
         rows.append(check_case("combat_widths_uneven", 37, 16, 8, 128, 128, 128, HEADS, dtype,
                                mask_rows=16, seed=14))
         rows += imagined_masks_cases(dtype)
+        rows += combat_imagined_masks_cases(imagined, dtype)
         for i, (tag, T, R) in enumerate(gru_rows):
             rows.append(check_gru(tag, T, R, GRU_HIDDEN, dtype, seed=20 + i, timing=True))
         if dtype == torch.float32:  # the flat slice's learner is float32
@@ -2057,7 +2151,8 @@ def kernels_line(rows, launches_by_path, launches_by_run):
     combat slice in float32 (attention: agent x3, Bp = 14496; GRU: agent x3,
     T = 151, R = 768); ``launches`` from the combat slice's run, and the
     Group Matching and flat slices' and each config and scale run's beside
-    it."""
+    it; the attention's also its rows on REFIL's imagined masks from the
+    3-8MMM and 3-8csz rollouts (``combat_imagined``)."""
     attn = next(r for r in rows if r["kernel"] == "entity_attn" and r["path"] == "combat"
                 and r["case"] == "agent_x3" and r["dtype"] == "float32")
     gru = next(r for r in rows if r["kernel"] == "gru" and r["case"] == "agent_x3"
@@ -2065,6 +2160,7 @@ def kernels_line(rows, launches_by_path, launches_by_run):
     bf16 = {k: next(r for r in rows if r["kernel"] == k and r["case"] == "agent_x3"
                     and r.get("path") == "combat" and r["dtype"] == "bfloat16")
             for k in ("entity_attn", "gru")}
+    imagined = [r for r in rows if r.get("path") == "combat_imagined"]
     out = []
     for row, kind, name, source, replaces in (
             (attn, "fwd", "entity_attn_fwd", "entity_attn.cu", "pallas_attn.py:87"),
@@ -2089,6 +2185,13 @@ def kernels_line(rows, launches_by_path, launches_by_run):
                      "library_ms": b["ms"][f"{kind}_library"],
                      # the GRU's yardstick is float32's where PyTorch refuses bf16
                      "library_dtype": b.get("library_dtype", "bfloat16")},
+            # REFIL's imagined pre-masks from the combat sets' rollouts
+            **({"combat_imagined": [
+                {"case": r["case"], "dtype": r["dtype"], "Bp": r["Bp"],
+                 "blocked_row_share": r["blocked_row_share"], "dead_share": r["dead_share"],
+                 "max_abs_err": r[f"{kind}_max_abs_err"],
+                 **({"scaled_err": max(r["bwd_scaled_err"].values())} if kind == "bwd" else {})}
+                for r in imagined]} if row["kernel"] == "entity_attn" else {}),
         })
     return {"kernels": out}
 

@@ -6,6 +6,7 @@ imports nothing of JAX."""
 import ast
 import glob
 import importlib.util
+import json
 import math
 import os
 
@@ -89,7 +90,7 @@ def test_learning_script_maps_its_arguments(tmp_path, argv, want, name, refs):
     set, then the extra overrides), the run's name and the reference runs
     (every seed of the config and set in results/r5_runs); no run starts."""
     mod = _learning_script()
-    got_name, cli, got_refs = mod.plan(mod.parse([str(tmp_path), *argv]))
+    [(got_name, cli, got_refs)] = mod.plans(mod.parse([str(tmp_path), *argv]))
     config, scenario, seed, t_max, *extra = want
     assert got_name == name
     assert cli == [f"--config={config}", "--env-config=sc2custom", "with",
@@ -99,6 +100,126 @@ def test_learning_script_maps_its_arguments(tmp_path, argv, want, name, refs):
     assert [os.path.basename(d) for d in got_refs.values()] == refs
     for d in got_refs.values():  # each names a committed reference run with a curve
         assert mod.curve(os.path.join(ROOT, d)), d
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--run", "refil:csz:0:3100000", "--run", "qmix_atten:3-8MMM_symmetric:1"],
+     [("refil_csz_s0", "refil", "3-8csz_symmetric", 0, 3_100_000, ["refil_csz"]),
+      ("qmix_atten_mmm_s1", "qmix_atten", "3-8MMM_symmetric", 1, 1_600_000,
+       ["qmix_atten_mmm"])]),
+    (["--run", "refil:mmm:1", "--run", "refil:mmm:2", "--t-max", "1600000",
+      "--stop-at", "0.9", "--parallel", "2", "lr=0.001"],
+     [("refil_mmm_s1", "refil", "3-8MMM_symmetric", 1, 1_600_000, ["refil_mmm"]),
+      ("refil_mmm_s2", "refil", "3-8MMM_symmetric", 2, 1_600_000, ["refil_mmm"])]),
+    (["--run", "refil:sz:2:1900000", "--wall-limit", "3000"],
+     [("refil_sz_s2", "refil", "3-8sz_symmetric", 2, 1_900_000, ["refil_sz", "refil_sz_s1"])]),
+])
+def test_learning_script_plans_several_runs(tmp_path, argv, want):
+    """``--run CONFIG:SET:SEED[:T_MAX]`` (SET by either name; ``--t-max``
+    where T_MAX is absent), one plan a run, each with the shared overrides;
+    a run that ``--stop-at`` or ``--wall-limit`` may end writes its
+    preemption checkpoint without the ring (it is deleted); no run starts."""
+    mod = _learning_script()
+    args = mod.parse([str(tmp_path), *argv])
+    got = mod.plans(args)
+    extra = [a for a in argv if "=" in a]
+    if args.stop_at is not None or args.wall_limit is not None:
+        extra.append("preempt_save_buffer=False")
+    assert [name for name, _, _ in got] == [w[0] for w in want]
+    for (name, cli, refs), (_, config, scenario, seed, t_max, ref_runs) in zip(got, want):
+        assert cli == [f"--config={config}", "--env-config=sc2custom", "with",
+                       f"scenario={scenario}", f"seed={seed}", f"t_max={t_max}",
+                       f"name={name}", f"local_results_path={os.path.join(tmp_path, name)}",
+                       *extra]
+        assert tmain.parse_cli(cli)[:2] == (config, "sc2custom")
+        assert [os.path.basename(d) for d in refs.values()] == ref_runs
+    assert args.parallel == (2 if "--parallel" in argv else 0)
+
+
+@pytest.mark.parametrize("argv", [["--run", "refil:sz"], ["--run", "refil:sz:0", "--run",
+                                                         "refil:3-8sz_symmetric:0"]])
+def test_learning_script_refuses_bad_runs(tmp_path, argv):
+    """A ``--run`` without a seed, or two runs of one name, stop the script
+    before any run starts."""
+    mod = _learning_script()
+    with pytest.raises(SystemExit):
+        mod.plans(mod.parse([str(tmp_path), *argv]))
+
+
+def test_learning_script_cards_and_sharing(monkeypatch):
+    """Several cards: a starting run takes the first card the fewest running
+    runs hold; one card: every run shares it; no nvidia-smi: None. Runs on
+    one card whose spans overlap shared it for the overlap's seconds."""
+    mod = _learning_script()
+    four = [(str(i), "NVIDIA H100 80GB HBM3, 700.00 W") for i in range(4)]
+    held = []
+    for _ in range(6):
+        held.append(mod.pick_card(four, held))
+    assert held == ["0", "1", "2", "3", "0", "1"]
+    assert mod.pick_card(four[:1], ["0", "0"]) == "0"
+    assert mod.pick_card([], []) is None
+    spans = {"a": ("0", 0.0, 100.0), "b": ("0", 40.0, 70.0), "c": ("1", 0.0, 100.0),
+             "d": ("0", 100.0, 150.0)}
+    assert mod.overlaps(spans) == {"a": {"b": 30.0}, "b": {"a": 30.0}, "c": {}, "d": {}}
+    # the visible cards are the ones CUDA_VISIBLE_DEVICES names
+    monkeypatch.setattr(mod.shutil, "which", lambda _: "/bin/nvidia-smi")
+    monkeypatch.setattr(mod.subprocess, "run", lambda *a, **k: type(
+        "R", (), {"stdout": "".join(f"{i}, {n}\n" for i, n in four)})())
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "1,3")
+    assert mod.cards() == [four[1], four[3]]
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
+    assert mod.cards() == four
+
+
+def _verdict_script():
+    spec = importlib.util.spec_from_file_location(
+        "combat_curves_verdict", os.path.join(ROOT, "scripts", "combat_curves_verdict.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("port,ref,want", [
+    # every 0.5 within 2x, the 0.9 median within 1.5x
+    ([(500, 1000), (600, 1400)], (400, 900), "variance"),
+    # a seed that never reaches 0.9 counts as its last t_env: the median
+    # 1,300 is over 1.5 x 800, and 800 lies outside 950-1,650 ...
+    ([(500, 1000), (600, None)], (400, 800), "fault"),
+    # ... but 1,000 lies inside 910-1,650, though the median 1,600 is over 1,500
+    ([(500, 960), (600, None), (550, None)], (400, 1000), "variance"),
+    # a 0.5 later than twice the reference's, or never
+    ([(900, 1000)], (400, 900), "fault"),
+    ([(None, None)], (400, 900), "fault"),
+])
+def test_combat_verdict_rule(port, ref, want):
+    """``scripts/combat_curves_verdict.py``'s rule on made-up crossings in
+    thousands of env steps (each port run's last t_env 1,600k)."""
+    mod = _verdict_script()
+    cross = lambda a, b: {"ge_0.5": a and a * 1000, "ge_0.9": b and b * 1000}  # noqa: E731
+    got = mod.verdict({s: (cross(*v), 1_600_000) for s, v in enumerate(port)},
+                      {0: cross(*ref)})
+    assert got["verdict"] == want, got
+
+
+def test_combat_verdict_reads_the_committed_runs(capsys):
+    """The script over ``results/torch_runs``: one line a set that has both
+    port and reference REFIL runs, each seed's crossings the learning
+    script's, the ratio at 0.5 QMIX-atten's over REFIL's."""
+    mod = _verdict_script()
+    mod.main([])
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert {r["set"] for r in rows} == {"3-8sz_symmetric", "3-8MMM_symmetric",
+                                        "3-8csz_symmetric"}
+    runs = os.path.join(ROOT, "results", "torch_runs")
+    for r in rows:
+        short = mod.SETS[r["set"]]
+        for seed, c in r["refil_seeds"].items():
+            want = mod.crossings(mod.curve(os.path.join(runs, f"refil_{short}_s{seed}")))
+            assert c == want
+        for seed, ratio in r["ratio_0.5"].items():
+            assert ratio == (r["qmix_atten_seeds"][seed]["ge_0.5"]
+                             / r["refil_seeds"][seed]["ge_0.5"])
+        assert r["verdict"] in ("variance", "fault")
 
 
 def test_cli_with_use_cuda_and_no_card_raises(tmp_path, monkeypatch):

@@ -4,7 +4,11 @@
 with the same parameters loaded into both and the JAX imagine draws handed
 to the port, for each combat learner config: ``refil`` (its JAX GRU on the
 XLA scan and on the Pallas kernel in interpret mode), ``refil_vdn``,
-``vdn_atten`` and ``qmix_atten``. Metrics after 4 RMSprop updates at rtol
+``vdn_atten`` and ``qmix_atten``. REFIL's imagined path also on
+3-8MMM_symmetric (Medivacs, which heal) and 3-8csz_symmetric (Colossi), 16
+entity slots with absent ones, on episodes in which units die (a dead unit
+stays in ``entity_mask`` but its ``obs_mask`` row blocks every other
+entity), with ``qmix_atten`` on 3-8MMM_symmetric as the control. Metrics after 4 RMSprop updates at rtol
 1e-5, parameters at atol 1e-5, at narrow widths; and ``refil`` at
 ``compute_dtype=bfloat16``, metrics and parameters within the bf16
 tolerance 2e-2 (relative to max(1, |x|))."""
@@ -28,16 +32,16 @@ from refil_torch.learners.q_learner import QLearner
 from refil_torch.run import build_env
 from torch_parity import assert_trees_close, batch_to_torch, flax_tree_to_numpy, unwrap
 
-NARROW = ["scenario=1-5m_symmetric", "env_args.episode_limit=12", "attn_embed_dim=16",
+NARROW = ["env_args.episode_limit=12", "attn_embed_dim=16",
           "hypernet_embed=16", "mixing_embed_dim=8", "attn_n_heads=2", "rnn_hidden_dim=16",
           "batch_size_run=16", "batch_size=8", "training_iters=4"]
 METRICS = ("loss", "loss_td", "im_loss", "grad_norm", "td_error_abs", "q_taken_mean",
            "target_mean")
 
 
-def _args(cfg_mod, alg="refil", extra=()):
-    cfg = cfg_mod.args_sanity_check(
-        cfg_mod.load_config(alg=alg, env="entity_battle", overrides=NARROW + list(extra)))
+def _args(cfg_mod, alg="refil", extra=(), scenario="1-5m_symmetric"):
+    cfg = cfg_mod.args_sanity_check(cfg_mod.load_config(
+        alg=alg, env="entity_battle", overrides=[f"scenario={scenario}"] + NARROW + list(extra)))
     args = cfg_mod.config_to_args(cfg)
     args.entity_scheme = True
     return args
@@ -54,11 +58,22 @@ def jax_gru(request):
     pg._INTERPRET = False
 
 
-def _combat_learner_vs_jax(alg, extra=(), tol=None):
+def _death_shares(samples):
+    """(absent, dead): the share of filled entity-steps whose slot is absent
+    from the scenario, and of those present whose unit is dead."""
+    em = np.asarray(samples["entity_mask"]).astype(bool)
+    om = np.asarray(samples["obs_mask"]).astype(bool)
+    filled = np.asarray(samples["filled"]).astype(bool)[..., 0]
+    dead = (om | np.eye(om.shape[-1], dtype=bool)).all(-1) & ~em
+    present = ~em & filled[..., None]
+    return float(em[filled].mean()), float(dead[present].mean())
+
+
+def _combat_learner_vs_jax(alg, extra=(), tol=None, scenario="1-5m_symmetric"):
     """Runs both learners on the same sample; ``tol`` None: rtol 1e-5 on the
     metrics and atol 1e-5 on the parameters, else |a - b| <= tol max(1, |b|)
     on both."""
-    jargs = _args(jconfig, alg, extra)
+    jargs = _args(jconfig, alg, extra, scenario)
     jenv = jax_build_env(jargs)
     info = jenv.env_info()
     jmac = JaxMAC(jargs, info)
@@ -74,9 +89,13 @@ def _combat_learner_vs_jax(alg, extra=(), tol=None):
     ring.insert_episode_batch(b1)
     ring.insert_episode_batch(b2)
     samples = ring.sample_many(jargs.training_iters, jargs.batch_size)
-    assert samples["entities"].shape[:3] == (4, 8, 13)
+    assert samples["entities"].shape[:4] == (
+        jargs.training_iters, jargs.batch_size, info["episode_limit"] + 1, info["n_entities"])
+    absent, dead = _death_shares(samples)
+    print(f"{scenario}: absent {absent:.4f}, dead {dead:.4f} of the entity-steps")
+    assert dead > 0, "no unit dies inside the episodes: the deaths' masks go unchecked"
 
-    targs = _args(tconfig, alg, list(extra) + ["use_cuda=False"])
+    targs = _args(tconfig, alg, list(extra) + ["use_cuda=False"], scenario)
     env = build_env(targs, torch.device("cpu"))
     assert env.env_info() == info
     mac = EntityMAC(targs, info, "cpu")
@@ -130,3 +149,11 @@ def test_combat_learner_configs_match_jax(alg):
 def test_combat_learner_bf16_matches_jax():
     learner = _combat_learner_vs_jax("refil", ["compute_dtype=bfloat16"], tol=2e-2)
     assert learner.mac.agent.dtype == learner.mixer.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("alg,scenario", [("refil", "3-8MMM_symmetric"),
+                                          ("refil", "3-8csz_symmetric"),
+                                          ("qmix_atten", "3-8MMM_symmetric")])
+def test_combat_learner_scenarios_match_jax(alg, scenario):
+    learner = _combat_learner_vs_jax(alg, scenario=scenario)
+    assert learner.is_imagine == (alg == "refil")

@@ -1,5 +1,8 @@
 """refil_torch.ops.masks against refil_tpu.ops.masks: exact boolean equality
 on the same inputs, with the JAX package's imagine draws injected."""
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,6 +11,8 @@ import torch
 
 from refil_tpu.ops import masks as jm
 from refil_torch.ops import masks as tm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _inputs(seed=0, B=3, T=4, Ne=6, Na=4):
@@ -74,3 +79,34 @@ def test_build_imagine_masks_draws_from_generator():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tm.build_imagine_masks(torch.as_tensor(obs), torch.as_tensor(em), 4)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("scenario", ["3-8MMM_symmetric", "3-8csz_symmetric"])
+def test_build_imagine_masks_on_combat_rollouts(scenario):
+    """The square imagined masks REFIL's RNN agent and hypernets take, on the
+    masks of combat rollouts in which units die (``chip_smoke.py``'s
+    ``combat_rollout_masks``, which the card's kernel check feeds the
+    attention with; here on the CPU, 4 episodes of the full 150 steps),
+    equal the JAX package's bit for bit with its draws injected."""
+    from refil_torch.config import load_config
+
+    cfg = load_config(alg="refil", env="sc2custom", overrides=[f"scenario={scenario}"])
+    om, em, dead, na = _chip_smoke().combat_rollout_masks(cfg, scenario, 4, seed=3,
+                                                          device="cpu")
+    assert om.shape == (4, cfg["env_args"]["episode_limit"] + 1, 16, 16) and na == 8
+    assert 0 < dead < 1, dead
+    key = jax.random.PRNGKey(11)
+    ref = jm.build_imagine_masks(key, jnp.asarray(om.numpy()), jnp.asarray(em.numpy()), na)
+    gp, ga = _jax_draws(key, 4, em.shape[-1])
+    out = tm.build_imagine_masks(om, em, na, group_probs=torch.as_tensor(gp),
+                                 groupA=torch.as_tensor(ga))
+    for name in ("within", "interact", "w_noobs", "i_noobs"):
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
