@@ -50,18 +50,29 @@ The kernel wrappers count launches in Python, which a replay does not run:
 ``graphs[kind].launches`` holds what the capture recorded (the wrappers'
 counts rose by that much while it recorded and launched nothing), so a
 run's launches are the counts plus ``launches x (replays - 1)`` per graph.
+
+Each block leaves a record in the pipeline's ``timer`` (``utils/profiling.py``).
+With ``trace_blocks`` (the default) one-thread kernels (``ops/stamp.py``)
+write the device's clock at the block's stage boundaries (start, rollout,
+insert and counters, sample, each update, the gt diagnostics, the target
+sync, the stats packed) into an int64 buffer of their own, outside the
+stats and the state;
+a replay rewrites them, and ``run_blocks`` copies them out after each block
+as it does the stats. The host's side is spans: each replay's ``launch``,
+the closing ``sync``, the eager first blocks, each capture and instantiate.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import stamp as stamp_op
 from ..parallel.mesh import RingLayout
+from ..utils.profiling import CLOCK_NS, BlockRecord, PhaseTimer
 from .buffer import storage_dtype
 
 
@@ -125,8 +136,12 @@ class FusedPipeline:
     """Owns the block. ``runner`` and ``learner`` supply its stages
     (``VectorRunner.rollout``, ``QLearner.updates``)."""
 
-    def __init__(self, runner, learner, buffer_size: int, args, mesh=None):
+    def __init__(self, runner, learner, buffer_size: int, args, mesh=None,
+                 timer: Optional[PhaseTimer] = None):
         self.mesh = mesh  # Optional[parallel.mesh.MeshContext]
+        # the spans and block records (utils/profiling.py): the run's, or one
+        # of the pipeline's own
+        self.timer = timer if timer is not None else PhaseTimer()
         self.runner = runner
         self.learner = learner
         self.device = learner.device
@@ -153,6 +168,18 @@ class FusedPipeline:
         self.target_update_interval = int(args.target_update_interval)
         self.gt_diag = bool(getattr(args, "test_gt_factors", False)) and learner.has_gt_diagnostics
         self.use_graphs = self.device.type == "cuda"
+        # device stamps at the block's stage boundaries (ops/stamp.py), one
+        # slot each: start, rollout, insert, sample, each update, the gt
+        # diagnostics, the target sync, the stats packed; outside the stats
+        # and the state
+        self.trace_blocks = bool(getattr(args, "trace_blocks", True))
+        self._stamps = (torch.zeros(6 + self.training_iters + int(self.gt_diag),
+                                    dtype=torch.int64, device=self.device)
+                        if self.trace_blocks else None)
+        self._stamp_names: Dict[str, Tuple[str, ...]] = {}  # by kind of block
+        self._cursor: Optional[List[str]] = None  # the boundaries stamped so far in a block
+        self._launch = None  # the last replay's launch span
+        self.dispatches = 0  # run_blocks calls so far
         self.graphs: Dict[str, CapturedBlock] = {}
         self.setup_seconds = 0.0  # capture + instantiate, once per kind of block
         self.eager_seconds = 0.0  # the eager first blocks, each timed between syncs
@@ -172,9 +199,14 @@ class FusedPipeline:
         a mesh this rank's ``buffer_size / n`` episodes."""
         spec = self.runner.batch_spec()
         self._dtypes = {k: dt for k, (_, dt) in spec.items()}
-        ring = {k: torch.zeros((self.buffer_size // self.n_data,) + shape,
-                               dtype=storage_dtype(k, dt, self.buffer_dtype), device=self.device)
-                for k, (shape, dt) in spec.items()}
+        with self.timer.span("setup.ring"):
+            ring = {k: torch.zeros((self.buffer_size // self.n_data,) + shape,
+                                   dtype=storage_dtype(k, dt, self.buffer_dtype),
+                                   device=self.device)
+                    for k, (shape, dt) in spec.items()}
+        if self.trace_blocks:
+            with self.timer.span("setup.clock"):
+                self.anchor_clock(8)
 
         def i32(v):
             return torch.tensor(v, dtype=torch.int32, device=self.device)
@@ -184,6 +216,34 @@ class FusedPipeline:
             t_env=i32(t_env), episode=i32(episode), last_target_episode=i32(episode),
             generators={"rollout": self.runner.generator, "sample": sample_generator,
                         "learner": self.learner.generator}, layout=self.layout)
+
+    def anchor_clock(self, rounds: int = 1) -> None:
+        """Anchors the stamps' clock on the host clock (``PhaseTimer.anchor``):
+        each round reads the host clock, stamps, synchronises and reads it
+        again; the stamp lies between the two reads, taken at their midpoint
+        (on the CPU a stamp is itself a host read). Set-up takes 8 rounds,
+        the fused loop one after each dispatch, outside its blocks."""
+        for _ in range(rounds):
+            self._sync()
+            before = CLOCK_NS()
+            stamp_op.stamp(self._stamps, 0)
+            self._sync()
+            after = CLOCK_NS()
+            t = int(self._stamps[0])
+            if self.use_graphs:
+                self.timer.anchor(t, (before + after) // 2, (after - before) // 2)
+            else:
+                self.timer.anchor(t, t, 0)
+
+    def _sync(self) -> None:
+        if self.use_graphs:
+            torch.cuda.synchronize(self.device)
+
+    def _stamp(self, name: str) -> None:
+        """The stage boundary ``name`` of the block being run, into its slot."""
+        if self._cursor is not None:
+            stamp_op.stamp(self._stamps, len(self._cursor))
+            self._cursor.append(name)
 
     def sample_idx(self, episodes_in_buffer: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -198,8 +258,10 @@ class FusedPipeline:
     # ------------------------------------------------------------------
     def _block_impl(self, ps: PipelineState, train: bool) -> Dict[str, Any]:
         B = self.batch_size_run
+        self._stamp("start")
         epsilon = self.runner.schedule.eval(ps.t_env.float())
         batch, roll = self.runner.rollout(epsilon, B, shard=self.mesh, gather_episodes=False)
+        self._stamp("rollout")
         # buffer_index is a multiple of B: this rank's B / n slots of the
         # block sit at buffer_index / n in its ring (RingLayout)
         slots = ps.buffer_index.long() // self.n_data + self._block_slots
@@ -210,8 +272,10 @@ class FusedPipeline:
         ps.t_env.add_(roll["ep_lengths"].sum().to(torch.int32))
         stats = {**roll, "epsilon": epsilon, "t_env": ps.t_env}
         if train:
+            self._stamp("insert")
             stats["metrics"] = self.train_half(ps)
         ps.episode.add_(B)
+        self._stamp("sync" if train else "insert")
         return stats
 
     def train_half(self, ps: PipelineState, draws: Optional[Dict[str, Any]] = None
@@ -229,10 +293,13 @@ class FusedPipeline:
         else:
             samples = self.mesh.gather_sample(ps.ring, idx, ps.layout)
         samples = {k: v.to(self._dtypes[k]) for k, v in samples.items()}
-        metrics = self.learner.updates(samples, draws.get("imagine"), mesh=self.mesh)
+        self._stamp("sample")
+        metrics = self.learner.updates(samples, draws.get("imagine"), mesh=self.mesh,
+                                       after_update=lambda i: self._stamp(f"update.{i}"))
         if self.gt_diag:
             last = {k: v[-1] for k, v in samples.items()}
             metrics.update(self.learner.gt_diagnostics(last, draws.get("diag"), mesh=self.mesh))
+            self._stamp("diag")
         # hard target sync on the pre-increment episode counter
         do_sync = (ps.episode - ps.last_target_episode) >= self.target_update_interval
         self.learner.sync_targets_where(do_sync)
@@ -241,13 +308,23 @@ class FusedPipeline:
 
     def block_device(self, ps: PipelineState, train: bool = True) -> torch.Tensor:
         """One block, run eagerly on the current stream; returns its stats
-        packed into a float64 vector on the device (nothing waits for it)."""
+        packed into a float64 vector on the device (nothing waits for it).
+        With ``trace_blocks`` its stage boundaries are stamped as well, the
+        last (``pack``) once its stats are packed: the block's end."""
         kind = "train" if train else "warm"
-        leaves = _flatten(self._block_impl(ps, train))
-        layout = [(path, tuple(t.shape)) for path, t in leaves]
-        if self._layout.setdefault(kind, layout) != layout:
-            raise RuntimeError(f"the {kind} block's stats changed layout")
-        return torch.cat([t.reshape(-1).to(torch.float64) for _, t in leaves])
+        self._cursor = [] if self.trace_blocks else None
+        try:
+            leaves = _flatten(self._block_impl(ps, train))
+            layout = [(path, tuple(t.shape)) for path, t in leaves]
+            if self._layout.setdefault(kind, layout) != layout:
+                raise RuntimeError(f"the {kind} block's stats changed layout")
+            out = torch.cat([t.reshape(-1).to(torch.float64) for _, t in leaves])
+            self._stamp("pack")
+        finally:
+            names, self._cursor = self._cursor, None
+        if names is not None and self._stamp_names.setdefault(kind, tuple(names)) != tuple(names):
+            raise RuntimeError(f"the {kind} block's stamps changed: {names}")
+        return out
 
     def _unpack(self, rows: np.ndarray, kind: str) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
@@ -266,15 +343,15 @@ class FusedPipeline:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        main = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(main)
-        with torch.cuda.stream(self._stream):
-            out = self.block_device(ps, train)
-        main.wait_stream(self._stream)
-        out.record_stream(main)
-        torch.cuda.synchronize(self.device)
-        self.eager_seconds += time.perf_counter() - t0
+        with self.timer.span("eager." + ("train" if train else "warm")) as span:
+            main = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                out = self.block_device(ps, train)
+            main.wait_stream(self._stream)
+            out.record_stream(main)
+            torch.cuda.synchronize(self.device)
+        self.eager_seconds += span.seconds
         return out
 
     def _capture(self, ps: PipelineState, kind: str) -> CapturedBlock:
@@ -290,20 +367,20 @@ class FusedPipeline:
         # global-mode capture would forbid that, so a mesh's capture is
         # thread-local
         mode = "global" if self.mesh is None else "thread_local"
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode=mode):
-            out = self.block_device(ps, kind == "train")
-        t1 = time.perf_counter()
-        graph.instantiate()
-        t2 = time.perf_counter()
+        with self.timer.span("capture." + kind) as captured:
+            with torch.cuda.graph(graph, stream=self._stream, capture_error_mode=mode):
+                out = self.block_device(ps, kind == "train")
+        with self.timer.span("instantiate." + kind) as instantiated:
+            graph.instantiate()
         after = launch_counts(self.mesh)
         rec = CapturedBlock(graph=graph, out=out, state=ps,
                             launches={k: after[k] - before[k] for k in after},
-                            capture_seconds=t1 - t0, instantiate_seconds=t2 - t1,
+                            capture_seconds=captured.seconds,
+                            instantiate_seconds=instantiated.seconds,
                             pool_bytes=torch.cuda.memory_reserved(self.device) - reserved,
                             collective_bytes=None if moved is None else {
                                 k: v - moved[k] for k, v in self.mesh.payload_bytes.items()})
-        self.setup_seconds += t2 - t0
+        self.setup_seconds += captured.seconds + instantiated.seconds
         self.graphs[kind] = rec
         return rec
 
@@ -320,7 +397,8 @@ class FusedPipeline:
         if rec.state is not ps:
             raise ValueError("a captured block replays only on the PipelineState it was "
                              "captured over")
-        rec.graph.replay()
+        with self.timer.span("launch") as self._launch:
+            rec.graph.replay()
         rec.replays += 1
         return rec.out
 
@@ -332,17 +410,35 @@ class FusedPipeline:
                    ) -> Dict[str, Any]:
         """``n_blocks`` blocks in one dispatch; ``ps`` is updated in place.
         Returns their stats on the host (numpy), each leaf stacked on a
-        leading block axis, fetched with one synchronisation."""
-        host = None
+        leading block axis, fetched with one synchronisation. Each block
+        leaves a record in ``timer`` (``utils/profiling.BlockRecord``): with
+        ``trace_blocks`` its stamps, copied after it as its stats are."""
+        kind = "train" if train else "warm"
+        dispatch, self.dispatches = self.dispatches, self.dispatches + 1
+        pin = self.use_graphs
+        stamps = (torch.empty((n_blocks, self._stamps.numel()), dtype=torch.int64, pin_memory=pin)
+                  if self.trace_blocks else None)
+        host, launches = None, []
         for bi in range(n_blocks):
+            self._launch = None
             out = self._next_block(ps, train)
+            launches.append(self._launch)
             if host is None:
-                host = torch.empty((n_blocks, out.numel()), dtype=torch.float64,
-                                   pin_memory=self.use_graphs)
+                host = torch.empty((n_blocks, out.numel()), dtype=torch.float64, pin_memory=pin)
             host[bi].copy_(out, non_blocking=True)
+            if stamps is not None:
+                stamps[bi].copy_(self._stamps, non_blocking=True)
         if self.use_graphs:
-            torch.cuda.current_stream(self.device).synchronize()
-        return self._unpack(host.numpy(), "train" if train else "warm")
+            with self.timer.span("sync"):
+                torch.cuda.current_stream(self.device).synchronize()
+        rows = None if stamps is None else stamps.tolist()
+        names = self._stamp_names.get(kind, ())
+        for bi, span in enumerate(launches):
+            self.timer.record_block(BlockRecord(
+                dispatch=dispatch, kind=kind, replay=span is not None,
+                launch_ns=None if span is None else span.end_ns - span.start_ns,
+                stamps=None if rows is None else rows[bi][:len(names)], names=names))
+        return self._unpack(host.numpy(), kind)
 
     def block(self, ps: PipelineState, train: bool = True) -> Dict[str, Any]:
         """One block; its stats on the host, unstacked."""

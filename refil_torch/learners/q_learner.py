@@ -21,7 +21,7 @@ below ``grad_norm_clip`` and become ``g / norm * grad_norm_clip`` otherwise
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -231,12 +231,14 @@ class QLearner:
         self.optimiser.step()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def updates(self, batches, imagine_draws: Optional[Sequence] = None, mesh=None
+    def updates(self, batches, imagine_draws: Optional[Sequence] = None, mesh=None,
+                after_update: Optional[Callable[[int], None]] = None
                 ) -> Dict[str, torch.Tensor]:
         """The ``training_iters`` updates in sequence on ``batches`` stacked on
         a leading iteration axis, with no host sync (``_train_iters_impl`` of
         the JAX learner). Returns the last update's metrics.
         ``imagine_draws[i]`` = (group_probs, groupA) for update i (tests).
+        ``after_update(i)`` runs after update i (the fused pipeline's stamps).
 
         With ``mesh`` (a ``parallel.mesh.MeshContext``), ``batches`` is this
         rank's shard of the global sample (``MeshContext.gather_sample``):
@@ -257,15 +259,17 @@ class QLearner:
             draws = None if imagine_draws is None else imagine_draws[i]
             if mesh is None:
                 metrics = self.train_step(batch, draws)
-                continue
-            if draws is None and self.is_imagine and not getattr(
-                    self.args, "train_gt_factors", False):
-                entity_mask = batch["entity_mask"]
-                draws = draw_imagine_groups(entity_mask.shape[0] * mesh.n_data,
-                                            entity_mask.shape[-1], self.generator,
-                                            entity_mask.device)
-            metrics = self.train_step(batch, None if draws is None else mesh.shard(draws),
-                                      mask_elems=mask_elems[i], reduce=mesh.all_reduce_)
+            else:
+                if draws is None and self.is_imagine and not getattr(
+                        self.args, "train_gt_factors", False):
+                    entity_mask = batch["entity_mask"]
+                    draws = draw_imagine_groups(entity_mask.shape[0] * mesh.n_data,
+                                                entity_mask.shape[-1], self.generator,
+                                                entity_mask.device)
+                metrics = self.train_step(batch, None if draws is None else mesh.shard(draws),
+                                          mask_elems=mask_elems[i], reduce=mesh.all_reduce_)
+            if after_update is not None:
+                after_update(i)
         return metrics
 
     def train_iters(self, batches, t_env: int, episode_num: int,

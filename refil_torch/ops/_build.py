@@ -1,8 +1,9 @@
 """Builds the CUDA sources in ``refil_torch/csrc/`` with ``nvcc`` at first use.
 
 Each ``csrc/<name>.cu`` becomes ``refil_torch/_build/lib<name>_<hash>.so``, a
-shared library with a plain C interface that ``ops/entity_attn.py`` loads with
-``ctypes``. The hash covers the source, every header in ``csrc/`` and the
+shared library with a plain C interface that ``load`` opens with ``ctypes``
+for its wrapper (``ops/entity_attn.py``, ``ops/gru_kernel.py``,
+``ops/stamp.py``). The hash covers the source, every header in ``csrc/`` and the
 flags, so an edited source or header is rebuilt and an unchanged one is
 reused. All sources build in parallel, one ``nvcc`` each. The build uses
 only the sources in the repository; a failed build raises with nvcc's
@@ -13,12 +14,15 @@ machine without ``nvcc``.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from typing import Dict, NamedTuple
+
+from ..utils.profiling import span
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -98,3 +102,11 @@ def library(name: str) -> str:
     if name not in _BUILT:
         build_all()
     return _BUILT[name].path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built where it is not yet and
+    loaded: the span ``library.<name>`` of the run's recorder (the first
+    library a process loads carries the build of every source)."""
+    with span(f"library.{name}"):
+        return ctypes.CDLL(library(name))

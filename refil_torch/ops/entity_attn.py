@@ -48,9 +48,9 @@ def reset_launches() -> None:
 def _lib():
     global _LIB
     if _LIB is None:
-        from ._build import library
+        from ._build import load
 
-        lib = ctypes.CDLL(library("entity_attn"))
+        lib = load("entity_attn")
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.entity_attn_plan.argtypes = [i] * 10 + [ip] * 4

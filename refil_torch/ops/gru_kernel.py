@@ -43,9 +43,9 @@ def reset_launches() -> None:
 def _lib():
     global _LIB
     if _LIB is None:
-        from ._build import library
+        from ._build import load
 
-        lib = ctypes.CDLL(library("gru"))
+        lib = load("gru")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_max_hidden.restype = i
         lib.gru_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 5

@@ -19,6 +19,13 @@ so they leave the training stream alone), logging, checkpoints on the
 ``save_model_interval`` cadence and the preemption check: a SIGTERM lets the
 in-flight block or dispatch finish, writes a checkpoint and returns.
 
+A run's one recorder (``utils/profiling.PhaseTimer``) holds the spans of
+set-up's steps (``build_training``'s, the kernel libraries' first loads, the
+ring, the eager first blocks and captures) and of the loop's (each dispatch,
+its launches, sync and accounting, the tests, saves and logging), and the
+fused pipeline's per-block stamps; the fused summary's ``spans`` is its
+snapshot as the loop returns.
+
 Checkpoints (``models/<token>/<t_env>/state.pt``, ``torch.save`` of CPU
 tensors, written to a tmp file and renamed): the learner's parameters,
 targets and RMSprop state; a fused run adds the pipeline's counters and its
@@ -80,6 +87,7 @@ from .envs.combat.scenarios import SCENARIO_REGISTRY
 from .learners.q_learner import QLearner
 from .parallel.mesh import maybe_init_distributed, maybe_make_mesh
 from .runners.vector_runner import VectorRunner
+from .utils import profiling
 from .utils.logging import Logger, get_logger
 from .utils.profiling import PhaseTimer
 from .utils.timehelper import time_left, time_str
@@ -203,21 +211,26 @@ def _sync(device: torch.device) -> None:
 
 
 def build_training(args, logger, device: torch.device):
-    """The env, controller, runner and learner of a run, and its generators."""
+    """The env, controller, runner and learner of a run, and its generators;
+    each step a span (``build.<step>``) of the run's recorder."""
     # the scheme flags (refil_tpu/run.py:313-329)
     args.entity_scheme = bool(args.env_args.get("entity_scheme", False))
-    env = build_env(args, device)
-    if args.entity_scheme:
-        env_info = env.env_info()
-    else:
-        # the flat env attaches its per-entity obs and state masks
-        env_info = env.env_info(args)
-        args.obs_masks, args.state_masks = env_info["masks"]
+    with profiling.span("build.env"):
+        env = build_env(args, device)
+        if args.entity_scheme:
+            env_info = env.env_info()
+        else:
+            # the flat env attaches its per-entity obs and state masks
+            env_info = env.env_info(args)
+            args.obs_masks, args.state_masks = env_info["masks"]
     gens = _generators(int(getattr(args, "seed", 0)), device)
-    mac = MAC_REGISTRY[args.mac](args, env_info, device, generator=gens["init"])
-    runner = VectorRunner(env, mac, args, logger, generator=gens["rollout"])
-    learner = QLearner(mac, args, env_info, device, generator=gens["learner"],
-                       init_generator=gens["init"])
+    with profiling.span("build.controller"):
+        mac = MAC_REGISTRY[args.mac](args, env_info, device, generator=gens["init"])
+    with profiling.span("build.runner"):
+        runner = VectorRunner(env, mac, args, logger, generator=gens["rollout"])
+    with profiling.span("build.learner"):
+        learner = QLearner(mac, args, env_info, device, generator=gens["learner"],
+                           init_generator=gens["init"])
     return runner, learner, gens
 
 
@@ -474,8 +487,16 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
     stat, the checkpoints written and loaded, whether a SIGTERM stopped the
     run, and for the fused loop its graphs and dispatches (each also with
     the seconds and env steps of its graph replays alone), its test
-    rollouts (t_env, width, seconds); for both, this rank's ring's bytes and
-    episodes, and the bytes of the whole ring over the ranks."""
+    rollouts (t_env, width, seconds) and its spans (``PhaseTimer.snapshot``:
+    set-up's steps, the loop's, and each block's stages); for both, this
+    rank's ring's bytes and episodes, and the bytes of the whole ring over
+    the ranks."""
+    timer = PhaseTimer()  # the run's spans, set-up's included
+    with profiling.recording(timer):
+        return _train(args, logger, device, timer)
+
+
+def _train(args, logger: Logger, device: torch.device, timer: PhaseTimer) -> Dict[str, Any]:
     runner, learner, gens = build_training(args, logger, device)
     log = logger.console_logger
     mesh = runner.mesh = maybe_make_mesh(args, device, log)
@@ -509,9 +530,10 @@ def run_sequential(args, logger: Logger, device: torch.device) -> Dict[str, Any]
     try:
         if use_fused:
             summary = _run_fused_loop(args, runner, learner, logger, device, gens, guard,
-                                      pipe_payload, mesh)
+                                      timer, pipe_payload, mesh)
         else:
-            summary = _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh)
+            summary = _run_classic_loop(args, runner, learner, logger, device, gens, guard,
+                                        timer, mesh)
     finally:
         guard.restore()
     log.info("Finished Training")
@@ -540,8 +562,8 @@ def _log_due(args, runner, logger, state) -> None:
         state["last_log_T"] = runner.t_env
 
 
-def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=None
-                      ) -> Dict[str, Any]:
+def _run_classic_loop(args, runner, learner, logger, device, gens, guard, timer: PhaseTimer,
+                      mesh=None) -> Dict[str, Any]:
     """The classic loop (``refil_tpu/run.py:411-503``). Its checkpoints hold
     the learner only, as the JAX package's do: a resume refills the ring.
     Under a data mesh each training rollout is sharded and gathered
@@ -551,7 +573,6 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=N
     log = logger.console_logger
     buffer_device = torch.device("cpu") if getattr(args, "buffer_cpu_only", False) else device
     buffer = None
-    timer = PhaseTimer()
     cadence = {"episode": 0, "last_log_T": 0}
     last_test_T = -args.test_interval - 1
     model_save_time = 0
@@ -646,15 +667,20 @@ def _run_classic_loop(args, runner, learner, logger, device, gens, guard, mesh=N
             "ring_episodes": 0 if buffer is None else next(iter(buffer.data.values())).shape[0]}
 
 
-def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
+def _run_fused_loop(args, runner, learner, logger, device, gens, guard, timer: PhaseTimer,
                     pipe_payload=None, mesh=None) -> Dict[str, Any]:
     """The fused loop (``refil_tpu/run.py:_run_fused_loop``): one dispatch
     of ``run_blocks`` between host-cadence boundaries (test, model save,
     t_max), each block accounted on the host from the stats fetched once per
     dispatch. ``pipe_payload`` (a checkpoint's) is restored into the fresh
-    pipeline state before the first block. ``mesh``: the pipeline's."""
+    pipeline state before the first block. ``mesh``: the pipeline's.
+    ``timer`` records the spans: each ``dispatch`` holds its ``blocks``
+    (``run_blocks``: launches, the closing ``sync``), a ``clock`` anchor of
+    the stamps (with ``trace_blocks``) and its ``account`` (the per-block
+    loop); then ``test``, ``save`` and ``log``. The summary's ``spans`` is a
+    snapshot of it as the loop returns."""
     log = logger.console_logger
-    pipeline = FusedPipeline(runner, learner, args.buffer_size, args, mesh=mesh)
+    pipeline = FusedPipeline(runner, learner, args.buffer_size, args, mesh=mesh, timer=timer)
     ps = pipeline.init_state(gens["sample"], t_env=runner.t_env)
     warm = pipeline.warmup_blocks()
     if pipe_payload is not None:
@@ -664,7 +690,6 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
         runner.t_env = int(ps.t_env)
         log.info("Restored pipeline state: t_env=%d episode=%d ring=%s", runner.t_env,
                  int(ps.episode), "restored" if "ring" in pipe_payload else "fresh")
-    timer = PhaseTimer()
     cadence = {"episode": int(ps.episode), "last_log_T": 0}
     blocks_done = 0
     last_test_T = -args.test_interval - 1
@@ -697,8 +722,9 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
         return 1 << (int(n).bit_length() - 1)
 
     def save(include_buffer: bool) -> None:
-        info = _save_on_main(mesh, _model_path(args, runner.t_env), learner, pstate=ps,
-                             include_buffer=include_buffer)
+        with timer.span("save"):
+            info = _save_on_main(mesh, _model_path(args, runner.t_env), learner, pstate=ps,
+                                 include_buffer=include_buffer)
         if info is not None:
             saves.append(info)
             log.info("Saved models to %s (%d bytes, %.3f s)", info["path"], info["bytes"],
@@ -710,46 +736,53 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
         train = blocks_done >= warm
         t_before, setup_before = runner.t_env, pipeline.setup_seconds
         eager_before, replays_before = pipeline.eager_seconds, pipeline.replays()
-        t_disp = time.perf_counter()
-        stats = pipeline.run_blocks(ps, n_blocks, train=train)
-        seconds = time.perf_counter() - t_disp - (pipeline.setup_seconds - setup_before)
-        replays = pipeline.replays() - replays_before
-        timer.note("block", seconds / n_blocks)
-        blocks_done += n_blocks
-        counts["blocks"] += n_blocks
-        if train:
-            counts["updates"] += n_blocks
-            counts["iterations"] += n_blocks * args.training_iters
-            counts["diag_calls"] += n_blocks if pipeline.gt_diag else 0
+        with timer.span("dispatch"):
+            with timer.span("blocks") as ran:
+                stats = pipeline.run_blocks(ps, n_blocks, train=train)
+            if pipeline.trace_blocks:
+                with timer.span("clock"):
+                    pipeline.anchor_clock()
+            with timer.span("account"):
+                seconds = ran.seconds - (pipeline.setup_seconds - setup_before)
+                replays = pipeline.replays() - replays_before
+                timer.note("block", seconds / n_blocks)
+                blocks_done += n_blocks
+                counts["blocks"] += n_blocks
+                if train:
+                    counts["updates"] += n_blocks
+                    counts["iterations"] += n_blocks * args.training_iters
+                    counts["diag_calls"] += n_blocks if pipeline.gt_diag else 0
 
-        for bi in range(n_blocks):
-            cadence["episode"] += args.batch_size_run
-            runner.t_env = int(stats["t_env"][bi])
-            runner.epsilon = float(stats["epsilon"][bi])
-            runner.account_block({"ep_returns": stats["ep_returns"][bi],
-                                  "ep_lengths": stats["ep_lengths"][bi],
-                                  "final_info": {k: v[bi] for k, v in stats["final_info"].items()}},
-                                 test_mode=False)
-            if train:
-                last_metrics = {k: float(v[bi]) for k, v in stats["metrics"].items()}
-                if runner.t_env - learner.log_stats_t >= args.learner_log_interval:
-                    for k, v in last_metrics.items():
-                        if k != "loss_td":
-                            logger.log_stat(k, v, runner.t_env)
-                    for k, v in timer.stats().items():
-                        logger.log_stat(k, v, runner.t_env)
-                    learner.log_stats_t = runner.t_env
-        train_seconds += seconds
-        train_steps += runner.t_env - t_before
-        # the replays alone: an eager block (the first of its kind) leads
-        # its dispatch, so the replays are the dispatch's last blocks
-        eager = n_blocks - replays
-        replay_seconds = seconds - (pipeline.eager_seconds - eager_before)
-        replay_t0 = int(stats["t_env"][eager - 1]) if eager else t_before
-        dispatches.append({"blocks": n_blocks, "train": train, "seconds": seconds,
-                           "env_steps": runner.t_env - t_before, "replays": replays,
-                           "replay_seconds": replay_seconds if replays else 0.0,
-                           "replay_env_steps": runner.t_env - replay_t0 if replays else 0})
+                for bi in range(n_blocks):
+                    cadence["episode"] += args.batch_size_run
+                    runner.t_env = int(stats["t_env"][bi])
+                    runner.epsilon = float(stats["epsilon"][bi])
+                    runner.account_block(
+                        {"ep_returns": stats["ep_returns"][bi],
+                         "ep_lengths": stats["ep_lengths"][bi],
+                         "final_info": {k: v[bi] for k, v in stats["final_info"].items()}},
+                        test_mode=False)
+                    if train:
+                        last_metrics = {k: float(v[bi]) for k, v in stats["metrics"].items()}
+                        if runner.t_env - learner.log_stats_t >= args.learner_log_interval:
+                            for k, v in last_metrics.items():
+                                if k != "loss_td":
+                                    logger.log_stat(k, v, runner.t_env)
+                            for k, v in timer.stats().items():
+                                logger.log_stat(k, v, runner.t_env)
+                            learner.log_stats_t = runner.t_env
+                train_seconds += seconds
+                train_steps += runner.t_env - t_before
+                # the replays alone: an eager block (the first of its kind)
+                # leads its dispatch, so the replays are the dispatch's last
+                eager = n_blocks - replays
+                replay_seconds = seconds - (pipeline.eager_seconds - eager_before)
+                replay_t0 = int(stats["t_env"][eager - 1]) if eager else t_before
+                dispatches.append({"blocks": n_blocks, "train": train, "seconds": seconds,
+                                   "env_steps": runner.t_env - t_before, "replays": replays,
+                                   "replay_seconds": replay_seconds if replays else 0.0,
+                                   "replay_env_steps": runner.t_env - replay_t0 if replays
+                                   else 0})
 
         # periodic greedy test runs: all of test_nepisode as one wider rollout
         n_test_eps = max(1, args.test_nepisode // runner.batch_size) * runner.batch_size
@@ -760,17 +793,18 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
                      time_str(time.time() - start_time))
             last_time = time.time()
             last_test_T = runner.t_env
-            t_test = time.perf_counter()
-            runner.run(test_mode=True, batch_size=n_test_eps, generator=gens["test"])
+            with timer.span("test") as tested:
+                runner.run(test_mode=True, batch_size=n_test_eps, generator=gens["test"])
             tests.append({"t_env": runner.t_env, "episodes": n_test_eps,
-                          "seconds": time.perf_counter() - t_test})
+                          "seconds": tested.seconds})
             counts["test_blocks"] += 1
 
         if _save_due(args, runner.t_env, model_save_time):
             model_save_time = runner.t_env
             save(bool(getattr(args, "checkpoint_buffer", False)))
 
-        _log_due(args, runner, logger, cadence)
+        with timer.span("log"):
+            _log_due(args, runner, logger, cadence)
 
         preempted = _preempt_due(guard, mesh)
         if preempted:
@@ -788,4 +822,4 @@ def _run_fused_loop(args, runner, learner, logger, device, gens, guard,
             "graphs": {k: g.summary() for k, g in pipeline.graphs.items()}, "saves": saves,
             "preempted": preempted, "tests": tests,
             "ring_bytes": ring_bytes, "ring_bytes_world": ring_bytes * pipeline.n_data,
-            "ring_episodes": next(iter(ps.ring.values())).shape[0]}
+            "ring_episodes": next(iter(ps.ring.values())).shape[0], "spans": timer.snapshot()}

@@ -33,8 +33,9 @@ launches, whose trace took longer to parse than the run. Prints JSON lines:
     env-steps/s are not printed: the trace is parsed inside the run;
     ``chip_smoke.py`` measures them unprofiled);
   * ``stages``: the device seconds of each stage of the entity-attention
-    forward and backward and of the GRU backward in the window (a call's
-    kernels run in a fixed order on one stream);
+    forward and backward and of the GRU forward and backward in the window
+    (a call's kernels run in a fixed order on one stream; the stages are
+    ``benchmark/trace.py``'s ``STAGES``);
   * ``top``: the device kernels with the most time (name, calls, seconds).
 The ``k=v`` arguments are config overrides, as after ``with`` on the CLI.
 Needs a CUDA device; exits non-zero without one.
@@ -51,30 +52,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# the kernels of one call of each hand-written kernel in launch order, and
+# the index of the call's own kernel in it
+from benchmark.trace import ANCHOR, STAGES  # noqa: E402
+
 # the window (wait, warmup, active), in steps of the profiler's schedule:
 # the classic loop steps once a learner update (a training block), the fused
 # loop once a train dispatch, which holds FUSED_DISPATCH blocks here so that
 # a short run has dispatches enough for a window of whole dispatches
 WINDOW = {"classic": (1, 1, 3), "fused": (1, 1, 2)}
 FUSED_DISPATCH = 2
-# the kernels of one call of each staged kernel in launch order (csrc/), each
-# stage with a piece of its kernel's name; the call is found by its one
-# kernel of its own (ANCHOR: its index in the call)
-STAGES = {
-    "attn_fwd": (("i_proj_kv", "gemm_kernel"), ("i_proj_q", "gemm_kernel"),
-                 ("ii_per_sample", "entity_attn_fwd_sample"), ("iii_out", "gemm_kernel")),
-    "attn_bwd": (("i_transpose_w_qkv", "entity_attn_transpose"),
-                 ("i_transpose_w_o", "entity_attn_transpose"), ("i_proj_kv", "gemm_kernel"),
-                 ("i_proj_q", "gemm_kernel"), ("i_dattn", "gemm_kernel"),
-                 ("ii_per_sample", "entity_attn_bwd_sample"), ("iii_dents_kv", "gemm_kernel"),
-                 ("iii_dents_q", "gemm_kernel"), ("iii_dw_kv", "gemm_kernel"),
-                 ("iii_dw_q", "gemm_kernel"), ("iii_dw_o", "gemm_kernel"),
-                 ("iii_db_o", "entity_attn_colsum"), ("iii_chunk_sum", "entity_attn_reduce")),
-    "gru_bwd": (("i_gh", "gemm_kernel"), ("i_gh_h0", "gemm_kernel"), ("ii_dh_chain", "gru_bwd_kernel"),
-                ("iii_dw_h", "gemm_kernel"), ("iii_dw_h_h0", "gemm_kernel"),
-                ("iii_db_hn", "gru_colsum"), ("iii_chunk_sum", "gru_reduce")),
-}
-ANCHOR = {"attn_fwd": 2, "attn_bwd": 5, "gru_bwd": 2}
 
 
 def parse(argv):
@@ -98,28 +85,28 @@ def parse(argv):
 
 
 def stage_seconds(kernels):
-    """Device seconds per stage of each staged kernel (``STAGES``) from
-    (start_us, name, us) in time order: one stream runs a call's kernels
-    one after another, so each call is the window of its stages around its
-    anchor. A call whose window does not hold the expected kernels makes
-    that kernel's entry None."""
+    """Device seconds per stage of each hand-written kernel's calls
+    (``STAGES``, in launch order) from (start_us, name, us) in time order:
+    one stream runs a call's kernels one after another, so each call is the
+    window of its stages around its anchor. A call whose window does not
+    hold the expected kernels makes that kernel's entry None."""
     out = {}
     for call, stages in STAGES.items():
-        anchor, tag = ANCHOR[call], stages[ANCHOR[call]][1]
-        sums, calls = {stage: 0.0 for stage, _ in stages}, 0
+        anchor = ANCHOR[call]
+        sums, calls = [0.0] * len(stages), 0
         for i, (_, name, _) in enumerate(kernels):
-            if tag not in name:
+            if stages[anchor] not in name:
                 continue
             window = kernels[i - anchor:i - anchor + len(stages)]
             if i < anchor or len(window) < len(stages) or any(
-                    t not in n for (_, t), (_, n, _) in zip(stages, window)):
+                    t not in n for t, (_, n, _) in zip(stages, window)):
                 sums = None
                 break
-            for (stage, _), (_, _, us) in zip(stages, window):
-                sums[stage] += us / 1e6
+            for j, (_, _, us) in enumerate(window):
+                sums[j] += us / 1e6
             calls += 1
-        out[call] = None if sums is None else {**sums, "calls": calls,
-                                               "total": sum(sums.values())}
+        out[call] = None if sums is None else {"kernels": list(stages), "seconds": sums,
+                                               "calls": calls, "total": sum(sums)}
     return out
 
 
@@ -205,7 +192,6 @@ def main(argv) -> None:
         by_name[name] = (calls + 1, total + us)
 
     stages = stage_seconds(kernels)
-    gru_fwd = sum(t for name, (_, t) in by_name.items() if "gru_fwd_kernel" in name) / 1e6
     # csrc/gemm.cuh's products, inside the attention's and the GRU's calls:
     # both instances (gemm::gemm_kernel, f32 FMA; gemm::tc::gemm_kernel_tc,
     # the bf16 tensor cores)
@@ -222,7 +208,8 @@ def main(argv) -> None:
         "device_idle_share": 1.0 - dev_us / 1e6 / wall,
         "entity_attn_share_of_device_time": share(sum(
             (stages[c] or {}).get("total", 0.0) for c in ("attn_fwd", "attn_bwd"))),
-        "gru_share_of_device_time": share(gru_fwd + (stages["gru_bwd"] or {}).get("total", 0.0)),
+        "gru_share_of_device_time": share(sum(
+            (stages[c] or {}).get("total", 0.0) for c in ("gru_fwd", "gru_bwd"))),
         "gemm_share_of_device_time": share(gemm),
         "kernel_launches": len(kernels), "kernel_launches_per_block": len(kernels) / blocks,
         "run_updates": summary["updates"], "run_blocks": summary["blocks"],

@@ -300,6 +300,11 @@ def test_port_imports_no_jax():
             assert mod.split(".")[0] not in banned, (path, mod)
 
 
+# the port's own options, which the JAX package has no counterpart of:
+# trace_blocks switches the fused pipeline's device stamps (core/pipeline.py)
+PORT_ONLY_KEYS = {"trace_blocks"}
+
+
 def test_port_config_files_mirror_the_reference():
     ref = sorted(os.path.relpath(p, os.path.join(ROOT, "refil_tpu", "config"))
                  for p in glob.glob(os.path.join(ROOT, "refil_tpu", "config", "**", "*.yaml"),
@@ -313,4 +318,6 @@ def test_port_config_files_mirror_the_reference():
 
     for alg, env in (("refil_group_matching", "group_matching"),
                      ("qmix_atten_group_matching", "group_matching"), ("refil", "entity_battle")):
-        assert set(tload(alg, env)) == set(jload(alg, env))
+        port_keys = set(tload(alg, env))
+        assert PORT_ONLY_KEYS <= port_keys
+        assert port_keys - PORT_ONLY_KEYS == set(jload(alg, env))
