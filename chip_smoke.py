@@ -48,6 +48,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
      beside the least time the card could take (``bound_ms``). The calls
      of phase 4b's configurations, derived from their configs, are added
      where no row above has their shape (``config_shapes``).
+  3b. combat_env: the combat env's step and observation kernels
+     (``ops/combat_env.py``) against the env's op path on the card, every
+     state, observation, reward, done and info tensor equal bit for bit over
+     40 steps of random legal actions (``COMBAT_ENV_CASES``: 3-8sz at tier 7
+     and B 8 and 4096, 3-8MMM at tier A, 3-8csz at tier 1, 3-8sz at tier 4,
+     each B 37, and the flat env's walled corridor); then each kernel's
+     device time a step at B 8 and 4096 beside its bytes bound and the op
+     path's device time (``combat_env_time`` lines).
   4. fused slices, the default loop: ``refil_torch.main`` trains
      refil_group_matching (>= 8 learner updates), the flagship refil on
      entity_battle 3-8sz_symmetric at the config's full width (>= 2
@@ -881,7 +889,7 @@ def phase_gemm():
                    chunks=264, seed=90 + i)
 
 
-OWN_TAGS = ("entity_attn", "gru_", "gemm_kernel")
+OWN_TAGS = ("entity_attn", "gru_", "gemm_kernel", "combat_")
 # kernels of a library's attention or recurrence (SDPA, flash, cuDNN): none
 # may run in a replayed block, whose attention and GRU are the repository's
 LIBRARY_TAGS = ("flash", "fmha", "sdpa", "scaled_dot", "efficient_attention", "cudnn", "rnn",
@@ -889,7 +897,8 @@ LIBRARY_TAGS = ("flash", "fmha", "sdpa", "scaled_dot", "efficient_attention", "c
 # one kernel of each wrapper's launch that no other launch runs
 ANCHORS = {"entity_attn_fwd": "entity_attn_fwd_sample_kernel",
            "entity_attn_bwd": "entity_attn_bwd_sample_kernel",
-           "gru_fwd": "gru_fwd_kernel", "gru_bwd": "gru_bwd_kernel"}
+           "gru_fwd": "gru_fwd_kernel", "gru_bwd": "gru_bwd_kernel",
+           "combat_step": "combat_step_kernel", "combat_observe": "combat_observe_kernel"}
 
 
 def profile_kernels(call):
@@ -907,9 +916,10 @@ def profile_replay(pipe, ps, name_power):
     """One replay of the captured combat train block under the profiler:
     its attention and GRU work runs in the repository's kernels, each
     wrapper's launches as many times as the capture recorded (counted by a
-    kernel only that launch runs), and no library attention or recurrence
-    kernel runs; the rest is PyTorch's kernels for the env, the dense layers
-    and the optimiser."""
+    kernel only that launch runs; the combat env's step and observation
+    kernels too), and no library attention or recurrence kernel runs; the
+    rest is PyTorch's kernels for the runner, the dense layers and the
+    optimiser."""
     rec = pipe.graphs["train"]
     kernels = profile_kernels(lambda: pipe.run_blocks(ps, 1, train=True))
     own = [(n, us) for _, n, us in kernels if any(t in n for t in OWN_TAGS)]
@@ -1215,6 +1225,117 @@ def combat_imagined_masks_cases(imagined, dtype=torch.float32):
     return rows
 
 
+# the combat env's kernels beside its op path (phase 3): (set, difficulty, B);
+# the cells' own set and tier at their widths, Medivacs at the top tier,
+# Colossi at the bottom, a ragged block of 37 envs; then the flat env's
+# walled corridor through its core's step
+COMBAT_ENV_CASES = (("3-8sz_symmetric", "7", 8), ("3-8sz_symmetric", "7", 4096),
+                    ("3-8MMM_symmetric", "A", 37), ("3-8csz_symmetric", "1", 37),
+                    ("3-8sz_symmetric", "4", 37))
+COMBAT_ENV_STEPS = 40
+# timed at the benchmark cells' widths, from a state this many steps in
+COMBAT_ENV_TIMING = (8, 4096)
+COMBAT_ENV_WARM_STEPS = 20
+
+
+def combat_env_equal(what, got, ref):
+    """The names of the tensors that differ (dtype, shape or any bit)."""
+    return [f"{what}.{k}" for k in ref if got[k].dtype != ref[k].dtype
+            or got[k].shape != ref[k].shape or not torch.equal(got[k], ref[k])]
+
+
+def combat_env_walk(core, state, steps, gen, flat=None, check=True):
+    """``steps`` env steps of uniformly random legal actions from ``state``,
+    the kernels beside the op path from the same state each step when
+    ``check`` (a finished env keeps its state, as the runner keeps it).
+    Returns (state, actions of the last step, names of the tensors that
+    differed, the share of battles that ended)."""
+    from refil_torch.envs.combat.flat_env import FlatState
+
+    B = state.t.shape[0]
+    alive = torch.ones(B, dtype=torch.bool, device=state.t.device)
+    bad, actions = [], None
+    for t in range(steps):
+        obs = core.observe(state)
+        if check:
+            bad += combat_env_equal(f"observe{t}", obs, core.observe_plain(state))
+        avail = obs["avail_actions"] if flat is None else flat.get_avail_actions(
+            FlatState(core=state, last_action=None))
+        u = torch.rand(avail.shape, generator=gen, device=avail.device)
+        actions = u.masked_fill(~avail, -1.0).argmax(-1)
+        if flat is not None:
+            actions = flat._to_entity_actions(actions, state)
+        new, reward, done, info = core.step_state(state, actions)
+        if check:
+            ref = core.step_state_plain(state, actions)
+            bad += combat_env_equal(
+                f"step{t}", {**new._asdict(), "reward": reward, "done": done, **info},
+                {**ref[0]._asdict(), "reward": ref[1], "done": ref[2], **ref[3]})
+        state = type(state)(*[torch.where(alive.view((B,) + (1,) * (n.dim() - 1)), n, o)
+                              for n, o in zip(new, state)])
+        alive = alive & ~done
+    return state, actions, bad, 1.0 - float(alive.float().mean())
+
+
+def phase_combat_env(name_power):
+    """The combat env's step and observation kernels against the op path on
+    the card (``COMBAT_ENV_CASES``: every state, observation, reward, done
+    and info tensor equal bit for bit, each step of ``COMBAT_ENV_STEPS``
+    from a reset); then, at the cells' 3-8sz_symmetric tier 7 and B 8 and
+    4096, each kernel's device time a step (its launches captured in a
+    graph, so the host's issue is out) against its bytes bound and against
+    the op path's device time (``combat_env`` and ``combat_env_time``
+    lines)."""
+    from refil_torch.envs.combat.env import EntityBattle
+    from refil_torch.envs.combat.flat_env import FlatBattle
+    from refil_torch.envs.combat.scenarios import SCENARIO_REGISTRY
+    from refil_torch.ops import combat_env
+
+    def entity_env(scenario, difficulty):
+        return EntityBattle(scenario_dict=SCENARIO_REGISTRY[scenario](), difficulty=difficulty,
+                            device="cuda")
+
+    failed = []
+    for scenario, difficulty, B in COMBAT_ENV_CASES:
+        env = entity_env(scenario, difficulty)
+        gen = torch.Generator(device="cuda").manual_seed(B + ord(difficulty))
+        state, obs = env.reset(B, generator=gen)
+        bad = combat_env_equal("reset", obs, env.observe_plain(state))
+        _, _, walk_bad, ended = combat_env_walk(env, state, COMBAT_ENV_STEPS, gen)
+        bad += walk_bad
+        emit("combat_env", card=name_power, case=f"{scenario}/{difficulty}", B=B,
+             steps=COMBAT_ENV_STEPS, ended_share=ended, ok=not bad, differ=bad[:20])
+        failed += bad
+    fenv = FlatBattle(map_name="corridor", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    fstate, _ = fenv.reset(37, generator=gen)
+    _, _, bad, ended = combat_env_walk(fenv.core, fstate.core, COMBAT_ENV_STEPS, gen, flat=fenv)
+    emit("combat_env", card=name_power, case="flat/corridor", B=37, steps=COMBAT_ENV_STEPS,
+         ended_share=ended, ok=not bad, differ=bad[:20])
+    failed += bad
+    if failed:
+        raise AssertionError(f"combat_env: the kernels differ from the op path: {failed[:20]}")
+
+    env = entity_env("3-8sz_symmetric", "7")
+    for B in COMBAT_ENV_TIMING:
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        state, _ = env.reset(B, generator=gen)
+        state, actions, _, _ = combat_env_walk(env, state, COMBAT_ENV_WARM_STEPS, gen,
+                                               check=False)
+        nbytes = combat_env.bytes_per_step(env, B)
+        calls = {"combat_step": (lambda: env.step_state(state, actions),
+                                 lambda: env.step_state_plain(state, actions)),
+                 "combat_observe": (lambda: env.observe(state),
+                                    lambda: env.observe_plain(state))}
+        row = {}
+        for name, (kernel, plain) in calls.items():
+            row[name] = {"ms": device_ms(kernel, iters=50), "plain_ms": device_ms(plain),
+                         "issue_ms": cuda_time_ms(kernel, iters=50),
+                         "bytes": nbytes[name],
+                         "bound_ms": nbytes[name] / PEAK_BYTES_PER_S * 1e3}
+        emit("combat_env_time", card=name_power, case="3-8sz_symmetric/7", B=B, **row)
+
+
 def phase_kernels(attn_rows, gru_rows):
     rows, imagined = [], combat_imagined_masks()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1293,22 +1414,39 @@ CB_FUSED_T_MAX = 9600
 # (batch_size 32), then >= 8 train blocks, a dispatch holding
 # remaining // 480 blocks
 FLAT_T_MAX = 6000
-KERNEL_LAUNCHES = ("entity_attn_fwd", "entity_attn_bwd", "gru_fwd", "gru_bwd")
+KERNEL_LAUNCHES = ("entity_attn_fwd", "entity_attn_bwd", "gru_fwd", "gru_bwd", "combat_step",
+                   "combat_observe")
+# The combat env's kernels (ops/combat_env.py) by path: on an entity combat
+# env a rollout step is one combat_step and one combat_observe, and a reset
+# one combat_observe (each rollout's, and the fused loop's one-env reset that
+# sizes the ring, ``batch_spec``); a recording step keeps the op path for its
+# render extras and launches only combat_observe. The flat env steps its
+# core through combat_step and observes on its own ops: of its resets only
+# its core's observation launches. Group Matching has no combat env.
+ENV_KERNELS = {"group_matching": None, "flat": "flat"}
 
 
-def expected_launches(path, iterations, rollout_steps, diag_calls):
+def expected_launches(path, iterations, rollout_steps, diag_calls, resets=0, record=False):
+    """The launches of ``iterations`` learner iterations, ``rollout_steps``
+    env steps (``record``: recording ones) in ``resets`` env resets and
+    ``diag_calls`` gt diagnostics on ``path``."""
     out = dict.fromkeys(KERNEL_LAUNCHES + ("entity_attn_gemm",), 0)
     for table, n in ((PER_ITER, iterations), (PER_STEP, rollout_steps), (PER_DIAG, diag_calls)):
         for k, per in table[path].items():
             out[k] += per * n
+    env = ENV_KERNELS.get(path, "entity")
+    if env is not None:
+        out["combat_step"] += 0 if record else rollout_steps
+        out["combat_observe"] += resets + (rollout_steps if env == "entity" else 0)
     return out
 
 
 def reset_launches():
-    from refil_torch.ops import entity_attn, gru_kernel
+    from refil_torch.ops import combat_env, entity_attn, gru_kernel
 
     entity_attn.reset_launches()
     gru_kernel.reset_launches()
+    combat_env.reset_launches()
 
 
 def read_launches(graphs=None):
@@ -1316,9 +1454,9 @@ def read_launches(graphs=None):
     where a capture records a block's launches without launching and a
     replay runs none of it: so each graph adds its recorded launches times
     its replays less the one count its capture left."""
-    from refil_torch.ops import entity_attn, gru_kernel
+    from refil_torch.ops import combat_env, entity_attn, gru_kernel
 
-    out = {**entity_attn.launches, **gru_kernel.launches}
+    out = {**entity_attn.launches, **gru_kernel.launches, **combat_env.launches}
     for g in (graphs or {}).values():
         for k in out:  # a mesh's graph also records its collectives
             out[k] += g["launches"].get(k, 0) * (g["replays"] - 1)
@@ -1339,9 +1477,10 @@ def run_slice(path, argv, name_power, min_updates, phase="slice", collectives=Fa
     launches = read_launches(summary.get("graphs"))
     loss = summary["last_metrics"].get("loss", float("nan"))
     per_iter = summary["iterations"] // max(summary["updates"], 1)
-    expected = expected_launches(path, summary["iterations"], summary["episode_limit"]
-                                 * (summary["blocks"] + summary["test_blocks"]),
-                                 summary["diag_calls"])
+    rollouts = summary["blocks"] + summary["test_blocks"]
+    expected = expected_launches(path, summary["iterations"], summary["episode_limit"] * rollouts,
+                                 summary["diag_calls"],
+                                 resets=rollouts + int(summary["loop"] == "fused"))
     row = dict(path=path, loop=summary["loop"],
                command="python -m refil_torch.main " + " ".join(argv),
                wall_seconds=wall, card=name_power, env_steps_per_s=summary["env_steps_per_s"],
@@ -1385,9 +1524,10 @@ def check_graphs(path, summary, per_iter, name_power, collectives=False):
     graphs = summary["graphs"]
     warm = summary["blocks"] - summary["updates"]
     T = summary["episode_limit"]
-    want = {"warm": (warm - 2, expected_launches(path, 0, T, 0)),
+    want = {"warm": (warm - 2, expected_launches(path, 0, T, 0, resets=1)),
             "train": (summary["updates"] - 2,
-                      expected_launches(path, per_iter, T, int(summary["diag_calls"] > 0)))}
+                      expected_launches(path, per_iter, T, int(summary["diag_calls"] > 0),
+                                        resets=1))}
     if collectives:  # the stats' all_gather; the sample's exchange, the
         # mask counts' all_reduce and one an update (and the gt diagnostics')
         want["warm"][1].update(all_gather=1, all_reduce=0, reduce_scatter=0)
@@ -1547,8 +1687,9 @@ def phase_graph_vs_eager(name_power, argv=None, phase="graph_vs_eager", path="co
     T = runner.episode_limit
     n_train = 1 + 1 + 1 + 1  # sync-checked, eager, captured and replayed, replayed
     expected = {k: warm * a + n_train * b for (k, a), b in zip(
-        expected_launches(path, 0, T, 0).items(),
-        expected_launches(path, args.training_iters, T, 0).values())}
+        expected_launches(path, 0, T, 0, resets=1).items(),
+        expected_launches(path, args.training_iters, T, 0, resets=1).values())}
+    expected["combat_observe"] += 1  # init_state's one-env reset (batch_spec)
     tol = 1e-4
     ok = (all(exact.values()) and all(v <= tol for v in scaled.values()) and stats_equal
           and differ > 0 and launches == expected)
@@ -1785,7 +1926,9 @@ def phase_eval(name_power, ckpt, step):
     """An eval-only run of run A's checkpoint over every scenario of
     3-8sz_symmetric, each one greedy rollout of the config's test_nepisode
     envs on that scenario: finite stats for every scenario, and the launches
-    one attention forward and one GRU forward a step of each rollout."""
+    one attention forward, one GRU forward, one combat_step and one
+    combat_observe a step of each rollout, and one combat_observe its
+    reset."""
     from refil_torch import main as tmain
 
     argv = eval_argv(ckpt, step)
@@ -1798,7 +1941,7 @@ def phase_eval(name_power, ckpt, step):
     launches = read_launches()
     res, secs = summary["eval"], summary["eval_seconds"]
     steps = summary["episode_limit"] * len(secs)
-    expected = expected_launches("combat", 0, steps, 0)
+    expected = expected_launches("combat", 0, steps, 0, resets=len(secs))
     with open(os.path.join(SMOKE_RESULTS, "eval", "eval.json")) as f:
         written = json.load(f)
     finite = all(math.isfinite(v) for r in res.values() for v in r.values())
@@ -1907,7 +2050,9 @@ def phase_record(name_power, ckpt, step):
     after one step: the phase rebuilds that state from the test generator's
     seed, steps it with the restored agent's greedy actions, and requires
     frame 0's positions to equal it exactly (and its types and active
-    slots the reset's). Launches: one attention and one GRU forward a step."""
+    slots the reset's). Launches: one attention and one GRU forward a step,
+    one combat_observe a step and the reset's, and no combat_step (a
+    recording step keeps the op path for its render extras)."""
     from refil_torch import config as tconfig
     from refil_torch import main as tmain
     from refil_torch import run as trun
@@ -1958,7 +2103,7 @@ def phase_record(name_power, ckpt, step):
         and all(np.array_equal(z[k][0], reset[k]) for k in ("type", "active", "is_ally")))
     video = summary["video"]
     video_ok = no_video is not None or (video is not None and os.path.getsize(video) > 0)
-    expected = expected_launches("combat", 0, T, 0)
+    expected = expected_launches("combat", 0, T, 0, resets=1, record=True)
     ok = (summary["loop"] == "evaluate" and keys_ok and frames_ok and first_ok and video_ok
           and launches == expected)
     emit("record", card=name_power, ok=ok, command="python -m refil_torch.main " + " ".join(argv),
@@ -2210,6 +2355,7 @@ def main(argv) -> None:
     attn_rows, gru_rows = attn_rows + new_attn, gru_rows + new_gru
     phase_sass(phase_build(attn_rows, gru_rows))
     rows = phase_kernels(attn_rows, gru_rows)
+    phase_combat_env(name_power)
     replay = None
     if not kernels_only:
         launches = {path: phase_fused(path, name_power) for path in SLICES}

@@ -120,9 +120,9 @@ class CapturedBlock:
 
 def launch_counts(mesh=None) -> Dict[str, int]:
     """The kernel wrappers' launch counts, and the mesh's collectives'."""
-    from ..ops import entity_attn, gru_kernel
+    from ..ops import combat_env, entity_attn, gru_kernel
 
-    return {**entity_attn.launches, **gru_kernel.launches,
+    return {**entity_attn.launches, **gru_kernel.launches, **combat_env.launches,
             **({} if mesh is None else mesh.launches)}
 
 

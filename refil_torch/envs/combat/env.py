@@ -24,6 +24,11 @@ terrain-height grids.
 Determinism on CUDA: every scatter-add with colliding indices is a one-hot
 product and a sum (no atomics); ``argmin``/``argmax`` pick the first index of
 a tie, as in JAX.
+
+On CUDA ``step_state`` (without ``record``) and ``observe`` are one kernel
+each (``ops/combat_env.py``, ``csrc/combat_env.cu``), bit for bit the op
+path's result there; ``step_state_plain`` and ``observe_plain`` are the op
+path, which the CPU runs and the kernels are held to.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops import combat_env
 from ..base import register_env, warn_unused_env_args
 from . import units as U
 from .scenarios import compile_scenarios
@@ -240,6 +246,9 @@ class EntityBattle:
                      else torch.as_tensor(getattr(self.sc, k), device=dev)
                      for k in ("ally_types", "ally_active", "enemy_types", "enemy_active",
                                "ally_group", "enemy_group", "ally_rank", "enemy_rank")}
+        # what the step and observation kernels read (ops/combat_env.py)
+        self.kernel_tables = combat_env.tables(self)
+        self.kernel_params = combat_env.params(self)
 
     # ------------------------------------------------------------------
     def env_info(self) -> Dict[str, Any]:
@@ -451,7 +460,16 @@ class EntityBattle:
 
     def step_state(self, state: CombatState, actions: torch.Tensor, record: bool = False):
         """Combat dynamics only: (state, reward, done, info). With ``record``,
-        ``info["render"]`` holds this step's render extras."""
+        ``info["render"]`` holds this step's render extras. On CUDA a step
+        that does not record is one kernel (``ops/combat_env.step``), bit for
+        bit the op path's result; a recording step and a CPU step run the op
+        path, ``step_state_plain``."""
+        if state.t.is_cuda and not record:
+            return combat_env.step(self, state, actions)
+        return self.step_state_plain(state, actions, record)
+
+    def step_state_plain(self, state: CombatState, actions: torch.Tensor, record: bool = False):
+        """``step_state`` op by op: the CPU's path and the kernel's yardstick."""
         Na, Ne = self.max_na, self.max_ne
         a_alive = (state.a_health > 0) & state.a_active
         e_alive = (state.e_health > 0) & state.e_active
@@ -736,6 +754,15 @@ class EntityBattle:
 
     # ------------------------------------------------------------------
     def observe(self, state: CombatState) -> Dict[str, torch.Tensor]:
+        """The entity observation, masks and available actions. On CUDA one
+        kernel (``ops/combat_env.observe``), bit for bit the op path's
+        result; on the CPU the op path, ``observe_plain``."""
+        if state.t.is_cuda:
+            return combat_env.observe(self, state)
+        return self.observe_plain(state)
+
+    def observe_plain(self, state: CombatState) -> Dict[str, torch.Tensor]:
+        """``observe`` op by op: the CPU's path and the kernel's yardstick."""
         B = state.t.shape[0]
         Na, Ne = self.max_na, self.max_ne
         a_alive = (state.a_health > 0) & state.a_active

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` becomes ``refil_torch/_build/lib<name>_<hash>.so``, a
 shared library with a plain C interface that ``load`` opens with ``ctypes``
 for its wrapper (``ops/entity_attn.py``, ``ops/gru_kernel.py``,
-``ops/stamp.py``). The hash covers the source, every header in ``csrc/`` and the
+``ops/stamp.py``, ``ops/combat_env.py``). The hash covers the source, every header in ``csrc/`` and the
 flags, so an edited source or header is rebuilt and an unchanged one is
 reused. All sources build in parallel, one ``nvcc`` each. The build uses
 only the sources in the repository; a failed build raises with nvcc's
