@@ -1,18 +1,21 @@
 """The readings that the limits of ``correct`` are set from, for one cell,
 on the card, in one process (the benchmark's own runs never run this).
 
-    python3 benchmark/calibrate.py --workload <cell> --seeds 11,12,13,...
+    python3 benchmark/calibrate.py --workload <cell> --seeds 11,12,13,... [--seconds S]
 
 For every seed, one run of the cell exactly as the benchmark runs it, with
-its window cut to the first train dispatch (``--seconds 0``: the numbers
-compared come from set-up's first train block), then, from what it
+its window cut to the first train dispatch after ``--seconds`` (default 0:
+most numbers compared come from set-up's first train block; a cell whose
+window holds tests needs seconds enough for one), then, from what it
 recorded: the program's numbers (``check.calibration``); the control's
 (the reference in the program's place with its products one precision
 below the configuration's, ``benchmark/precision.py``); and the faults:
 half of each batch left out and one rollout Q-value altered, planted in
 the reference put in the program's place; a graph replay that redraws the
-first train block's numbers; bipartitions not drawn from their
-probabilities. Prints one JSON line a seed, then the readings by the rule
+first train block's numbers, and one that flips a bit of the ring outside
+the insert's slots (an infinite reading); bipartitions not drawn from their
+probabilities; in the window's first test, one Q-value and one action
+altered. Prints one JSON line a seed, then the readings by the rule
 of ``limits``: the lower reading (the largest of the program's; for
 replay_gap, whose sound runs may read 0, at least float32's machine
 epsilon, the least gap that rounding leaves), the upper (the smallest of
@@ -41,7 +44,7 @@ def limits(per_seed):
     from benchmark import check
 
     out = {}
-    for k in check.NUMBERS:
+    for k in (k for k in check.NUMBERS if k in per_seed[0]["program"]):
         lower = max(r["program"][k] for r in per_seed)
         if k in check.EXACT:
             out[k] = {"lower": lower, "limit": 0}
@@ -68,6 +71,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True, help="comma-separated")
+    ap.add_argument("--seconds", type=float, default=0.0)
     args = ap.parse_args(argv)
 
     import torch
@@ -83,9 +87,9 @@ def main(argv=None) -> int:
     per_seed = []
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        rec, ctx = harness.drive(args.workload, seed, 0.0, False, t0, spec=spec)
+        rec, ctx = harness.drive(args.workload, seed, args.seconds, False, t0, spec=spec)
         readings = check.calibration(ctx["ref_mod"], rec, ctx["sizes"], ctx["dtype"],
-                                     ctx["replay"], seed)
+                                     ctx["replay"], seed, ctx["test_faults"], ctx["test"])
         per_seed.append(readings)
         print(json.dumps({"seed": seed, "seconds": time.perf_counter() - t0, **readings}),
               flush=True)

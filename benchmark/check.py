@@ -44,23 +44,47 @@ eager path that the reference judges (``harness.replay_readings``):
 
 * ``replay_gap``: one train block from the state the window left, replayed
   and run eagerly from one snapshot: the largest |difference| over
-  max(1, largest |value|) over the block's stats and every tensor of the
-  training state.
+  max(1, largest |value|) over the block's stats, the state outside the
+  ring and the ring's rows the block's insert writes; ``inf`` where either
+  run changed another ring row (held by an exact digest of each row, not
+  by a copy of the ring).
+
+And three hold the window's test rollouts (the loop's periodic greedy
+tests, ``harness.Tests``), which add no env step to the window's rate:
+
+* ``test_faults`` (exact, limit 0): over every test the run made, as the
+  loop's test entry returned it: the tests missing or extra against the
+  cadence (a test at each dispatch boundary where ``test_interval`` env
+  steps have passed since the last), the episodes a test lacks or has
+  beyond all of ``test_nepisode`` in whole blocks of ``batch_size_run``,
+  and the episodes that neither terminated nor reached the episode limit;
+* ``test_q_gap``: the window's first test, on the checked envs' rows: its
+  agents' Q step by step against the reference's whole-episode forward on
+  its episodes, with the parameters it ran with (the program's, as the
+  window's training left them: the reference cannot follow that training
+  through the window; the first three updates and ``replay_gap`` hold it),
+  as ``rollout_q_gap`` is read;
+* ``test_action_gap``: the same test's actions against the reference's
+  greedy choice: the largest amount by which the chosen action's reference
+  Q lies below the best available one's, over the largest |Q|, on the
+  steps where the env was running (``inf`` for an unavailable action).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib
+import math
 import statistics
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from . import precision
 
 NUMBERS = ("loss_gap", "grad_gap", "change_gap", "rollout_q_gap", "replay_gap", "draw_gap",
-           "sample_faults", "insert_faults")
-EXACT = ("sample_faults", "insert_faults")
+           "sample_faults", "insert_faults", "test_faults", "test_q_gap", "test_action_gap")
+EXACT = ("sample_faults", "insert_faults", "test_faults")
 # leaves whose reference gradient is below this share of the median leaf's
 # move by round-off alone and are left out of change_gap
 STILL_LEAF = 1e-3
@@ -93,6 +117,85 @@ class Sample:
     draws: List
     rollout: Dict[str, torch.Tensor]
     inserted: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TestRollout:
+    """One test rollout on the checked envs' rows: its episodes as the
+    loop's test entry returned them (B, T+1, ...), its agents' Q step by
+    step (B, T, Na, A) and the parameters it ran with."""
+
+    batch: Dict[str, torch.Tensor]
+    q: torch.Tensor
+    params: Dict[str, torch.Tensor]
+
+
+def test_faults(seen: Sequence, expected: Sequence[int], width: int, limit: int) -> int:
+    """``seen``: (t_env, filled (B, T+1, 1), terminated (B, T+1, 1)) of each
+    test the run made; ``expected``: the t_envs the cadence calls for;
+    ``width``: the episodes a test covers; ``limit``: the episode limit."""
+    want, got = collections.Counter(expected), collections.Counter(t for t, _, _ in seen)
+    faults = sum(((want - got) + (got - want)).values())
+    for _, filled, terminated in seen:
+        lengths = filled[:, 1:, 0].long().sum(1)
+        last = terminated[:, :, 0].gather(1, (lengths - 1).clamp_min(0)[:, None])[:, 0]
+        ended = (lengths >= limit) | last.bool()
+        faults += abs(filled.shape[0] - width) + int((~ended).sum())
+    return faults
+
+
+def expected_tests(dispatch_env_steps: Sequence[int], interval: float) -> List[int]:
+    """The t_envs at which the loop's cadence tests: after each dispatch,
+    where ``interval`` env steps have passed since the last test (the first
+    dispatch always tests)."""
+    t, last, out = 0, -interval - 1, []
+    for n in dispatch_env_steps:
+        t += int(n)
+        if (t - last) / interval >= 1.0:
+            out.append(t)
+            last = t
+    return out
+
+
+def _test_valid(batch) -> torch.Tensor:
+    return batch["filled"][:, 1:, 0].bool()
+
+
+def action_gap(q_ref: torch.Tensor, actions: torch.Tensor, avail: torch.Tensor,
+               valid: torch.Tensor) -> float:
+    """The largest (best available reference Q - the chosen action's) over
+    the largest |reference Q|, on the ``valid`` (B, T) steps; q_ref, avail
+    (B, T, Na, A), actions (B, T, Na)."""
+    best = q_ref.masked_fill(~avail, -math.inf).amax(-1)
+    pick = actions[..., None]
+    gap = torch.where(avail.gather(-1, pick)[..., 0], best - q_ref.gather(-1, pick)[..., 0],
+                      math.inf)
+    scale = q_ref.abs()[valid].max().clamp_min(1e-30)
+    return float(gap[valid].max() / scale)
+
+
+def test_numbers(q: torch.Tensor, actions: torch.Tensor, q_ref: torch.Tensor,
+                 batch) -> Dict[str, float]:
+    """``test_q_gap`` of ``q`` and ``test_action_gap`` of ``actions``
+    against the reference's Q ``q_ref`` (B, T, Na, A) on ``batch``."""
+    valid, T = _test_valid(batch), q_ref.shape[1]
+    avail = batch["avail_actions"][:, :T].bool()
+    q, q_ref = q.float(), q_ref.float()
+    scale = q_ref.abs()[valid].max().clamp_min(1e-30)
+    return {"test_q_gap": float((q - q_ref).abs()[valid].max() / scale),
+            "test_action_gap": action_gap(q_ref, actions, avail, valid)}
+
+
+def test_reference_q(ref_mod, test: TestRollout, sizes, mm: Callable = precision.exact):
+    with torch.no_grad():
+        params = {k: v.float() for k, v in test.params.items()}
+        return ref_mod.rollout_q(params, test.batch, sizes, mm)[:, :-1]
+
+
+def greedy(q: torch.Tensor, batch) -> torch.Tensor:
+    """The greedy actions of ``q`` (B, T, Na, A) over the available ones."""
+    avail = batch["avail_actions"][:, :q.shape[1]].bool()
+    return q.float().masked_fill(~avail, -math.inf).argmax(-1)
 
 
 def sample_faults(s: Sample) -> int:
@@ -164,25 +267,62 @@ def valid_steps(record) -> torch.Tensor:
     return record.rollout_batch["filled"][:, 1:, 0].bool()
 
 
-def readings(ref_mod, record, sizes, replay_gap: float) -> Dict[str, float]:
+def _test_actions(test: TestRollout) -> torch.Tensor:
+    return test.batch["actions"][:, :test.q.shape[1]]
+
+
+def readings(ref_mod, record, sizes, replay_gap: float, faults_in_tests: int,
+             test: Optional[TestRollout]) -> Dict[str, float]:
     """The program's numbers: its outputs against the float32 reference,
-    its sample, and its replays against its eager block."""
-    return {**compare(record.outputs(), reference_outputs(ref_mod, record, sizes),
-                      valid_steps(record)),
-            **sample_numbers(record.sampled()), "replay_gap": replay_gap}
+    its sample, its replays against its eager block, its tests; the two
+    numbers of the window's first test only where the window held one."""
+    out = {**compare(record.outputs(), reference_outputs(ref_mod, record, sizes),
+                     valid_steps(record)),
+           **sample_numbers(record.sampled()), "replay_gap": replay_gap,
+           "test_faults": float(faults_in_tests)}
+    if test is not None:
+        out.update(test_numbers(test.q, _test_actions(test),
+                                test_reference_q(ref_mod, test, sizes), test.batch))
+    return out
+
+
+def _test_calibration(ref_mod, test: TestRollout, sizes, low: Callable):
+    """The window's first test: the program's two numbers, the control's
+    (its Q, and the actions its Q puts first, at each step of the same
+    episodes), and one Q-value and one action altered where produced (the
+    action to the available one the reference puts last)."""
+    truth = test_reference_q(ref_mod, test, sizes)
+    control = test_reference_q(ref_mod, test, sizes, low)
+    actions = _test_actions(test)
+    valid = _test_valid(test.batch)
+    b, t = (int(i) for i in valid.nonzero()[0])
+    altered_q = test.q.float().clone()
+    altered_q[b, t, 0, 0] += 1.0
+    avail = test.batch["avail_actions"][:, :truth.shape[1]].bool()
+    worst = truth.masked_fill(~avail, math.inf).argmin(-1)
+    altered_actions = actions.clone()
+    altered_actions[b, t] = worst[b, t]
+    altered = test_numbers(altered_q, altered_actions, truth, test.batch)
+    return {"program": test_numbers(test.q, actions, truth, test.batch),
+            "control": test_numbers(control, greedy(control, test.batch), truth, test.batch),
+            "answer_altered": altered}
 
 
 def calibration(ref_mod, record, sizes, dtype: str, replay: Dict[str, float],
-                seed: int) -> Dict[str, Dict[str, float]]:
+                seed: int, faults_in_tests: int = 0,
+                test: Optional[TestRollout] = None) -> Dict[str, Dict[str, float]]:
     """Every reading of one seed: the program's; the control's (the
     reference in the program's place, its products one precision below
     ``dtype``); faults planted in the reference put in the program's
     place: half of each batch left out (the mean over the rest), and one
     rollout Q-value altered where it is produced; a graph replay that
-    redraws the first train block's numbers (``frozen_draw``, read by
-    ``harness.replay_readings``); and bipartitions whose groupA is drawn at
-    p 0.5, not from their group_probs (``draw_fault``). A step that leaves
-    the state unchanged reads change_gap 1 with no run."""
+    redraws the first train block's numbers (``frozen_draw``) and one that
+    writes a bit of the ring outside the insert's slots (``stray_write``),
+    both read by ``harness.replay_readings``; and bipartitions whose groupA
+    is drawn at p 0.5, not from their group_probs (``draw_fault``). A step
+    that leaves the state unchanged reads change_gap 1 with no run. Where
+    the window held a test (``test``), its numbers beside them
+    (``_test_calibration``)."""
     valid = valid_steps(record)
     sample = record.sampled()
     gen = torch.Generator().manual_seed(int(seed) % 2 ** 63)
@@ -195,15 +335,20 @@ def calibration(ref_mod, record, sizes, dtype: str, replay: Dict[str, float],
     altered_q = truth.rollout_q.clone()
     altered_q[tuple(valid.nonzero()[0].tolist()) + (0, 0)] += 1.0
     altered = dataclasses.replace(truth, rollout_q=altered_q)
+    tests = _test_calibration(ref_mod, test, sizes, low) if test is not None else {}
     return {"program": {**compare(record.outputs(), truth, valid), **sample_numbers(sample),
-                        "replay_gap": replay["program"]},
-            "control": compare(control, truth, valid),
+                        "replay_gap": replay["program"], "test_faults": float(faults_in_tests),
+                        **tests.get("program", {})},
+            "control": {**compare(control, truth, valid), **tests.get("control", {})},
             "half_batch": compare(half, truth, valid),
-            "answer_altered": compare(altered, truth, valid),
+            "answer_altered": {**compare(altered, truth, valid),
+                               **tests.get("answer_altered", {})},
             "frozen_draw": {"replay_gap": replay["frozen_draw"]},
+            "stray_write": {"replay_gap": replay["stray_write"]},
             "draw_fault": {"draw_gap": draw_gap(unrelated)}}
 
 
 def verdict(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
-    """Every number at or under its limit (a NaN fails)."""
-    return bool(all(numbers[k] <= limits[k] for k in limits))
+    """Every number at or under its limit (a NaN, or a number not read,
+    fails)."""
+    return bool(all(numbers.get(k, math.nan) <= limits[k] for k in limits))

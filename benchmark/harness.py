@@ -21,15 +21,23 @@ outside, for the length of the run:
   Q-values, the ring's rows its insert wrote, the slots its sample drew
   and those slots' episodes read from the ring, and its first three
   updates' losses and state (and the imagined bipartitions, where the
-  learner draws them).
+  learner draws them);
+* ``VectorRunner.run`` in test mode (the loop's periodic greedy test): each
+  test's t_env and its episodes' lengths and terminations (``Tests``), and
+  the window's first test whole on the checked envs' rows: its episodes,
+  its agents' Q at each step and the parameters it ran with.
 
 Once the window has closed, ``replay_readings`` holds the timed path itself
-to the eager one: from a snapshot of the training state the window left,
-one train block is replayed from the captured graph and the same block is
-run eagerly (``FusedPipeline.block_device``, the code the graph captured),
-and the two results are compared (``replay_gap``); set-up's eager block is
-the one held to the reference. The window's numbers come from the loop's
-summary (``dispatches``) and the host clock. With ``trace``,
+to the eager one: from a snapshot of what a train block may change (the
+state outside the ring whole, the ring's rows at the block's insert slots,
+a digest of every other row), one train block is replayed from the
+captured graph and the same block is run eagerly
+(``FusedPipeline.block_device``, the code the graph captured), and the two
+results are compared (``replay_gap``); set-up's eager block is the one held
+to the reference. The window's numbers come from the loop's summary
+(``dispatches``) and the host clock. The window holds whatever the loop
+runs between its train dispatches, the test rollouts among it, and counts
+the train blocks' env steps alone. With ``trace``,
 ``TRACE_BLOCKS`` more train blocks are replayed under the profiler once the
 window has closed (``benchmark/trace.py``), and the per-layer metrics are
 read from both by ``benchmark/metrics/<name>.py``.
@@ -58,6 +66,10 @@ RUN_DIR = os.path.join(BENCH_DIR, "_run")
 FORBIDDEN = ("jax", "jaxlib", "flax", "refil_tpu")
 TRACE_BLOCKS = 2
 CHECK_UPDATES = 3
+# the replay check's scratch: each step of a digest or of a comparison
+# holds at most this many bytes (or one ring row as int64 words)
+CHUNK_BYTES = 1 << 27
+DIGEST_SEED = 20240611
 
 
 # ------------------------------------------------------------------ the cell
@@ -177,11 +189,45 @@ class Recorder:
                 and self.inserted is not None)
 
 
+class Tests:
+    """The run's test rollouts, as the loop's test entry returned them:
+    (t_env, filled, terminated) of each, and the window's first test on the
+    checked envs' rows (``check.TestRollout``): its episodes, its agents' Q
+    at each step, and the parameters it ran with, copied as it starts. All
+    is kept on the host, so that the device's peak within the window is
+    the program's."""
+
+    def __init__(self, env_rows: torch.Tensor, learner, names: List[str]):
+        self.env_rows = env_rows
+        self.learner = learner
+        self.names = names
+        self.seen: List = []
+        self.recording = False
+        self.q_steps: Any = []  # the first test's Q a step; then all of it, on the host
+        self.params: Optional[Dict[str, torch.Tensor]] = None
+        self.batch: Optional[Dict[str, torch.Tensor]] = None
+
+    def rows(self, episodes: int) -> torch.Tensor:
+        """The checked envs' rows that a test of ``episodes`` holds."""
+        return self.env_rows[self.env_rows < episodes]
+
+    def rollout(self) -> Optional[check.TestRollout]:
+        if self.batch is None:
+            return None
+        dev = self.env_rows.device
+        return check.TestRollout({k: v.to(dev) for k, v in self.batch.items()},
+                                 self.q_steps.to(dev),
+                                 {k: v.to(dev) for k, v in self.params.items()})
+
+
 class Window:
     def __init__(self, seconds: float):
         self.seconds = seconds
         self.start: Optional[float] = None
         self.end: Optional[float] = None
+        # the same two instants on the program's span clock (time.time_ns)
+        self.start_ns: Optional[int] = None
+        self.end_ns: Optional[int] = None
         self.stop = False
         self.closed = False
         self.first_dispatch = True
@@ -235,6 +281,9 @@ def instrument(ref_mod, sizes, seed: int, window: Window, holder: Dict[str, Any]
         rows = torch.randperm(B, generator=torch.Generator().manual_seed(_seed(seed, 2)))
         rows = rows[:min(check_envs, B)].sort().values.to(device)
         holder["recorder"] = Recorder(rows, params0, float(sizes["optim_alpha"]), names)
+        holder["tests"] = Tests(rows, learner, names)
+        holder["cadence"] = (float(args.test_interval),
+                             max(1, int(args.test_nepisode) // B) * B)
         window.marks["built"] = time.perf_counter()
         return runner, learner, gens
 
@@ -262,8 +311,31 @@ def instrument(ref_mod, sizes, seed: int, window: Window, holder: Dict[str, Any]
             rec = holder.get("recorder")
             if rec is not None and rec.active and rec.rollout_batch is None:
                 rec.q_steps.append(q[rec.env_rows].detach().clone())
+            tests = holder.get("tests")
+            if tests is not None and tests.recording:
+                tests.q_steps.append(q[tests.rows(q.shape[0])].detach().clone())
             return q, h
         return forward_step
+
+    def run(self, *args, **kwargs):
+        tests = holder.get("tests")
+        if not kwargs.get("test_mode", args[0] if args else False) or tests is None:
+            return orig["run"](self, *args, **kwargs)
+        first = window.start is not None and tests.batch is None
+        if first:
+            tests.params = {n: p.detach().cpu().clone()
+                            for n, p in zip(tests.names, tests.learner.params)}
+            tests.recording = True
+        try:
+            batch = orig["run"](self, *args, **kwargs)
+        finally:
+            tests.recording = False
+        tests.seen.append((int(self.t_env), batch["filled"].cpu(), batch["terminated"].cpu()))
+        if first:
+            rows = tests.rows(batch["filled"].shape[0])
+            tests.batch = {k: v[rows].cpu() for k, v in batch.items()}
+            tests.q_steps = torch.stack(tests.q_steps, dim=1).cpu()
+        return batch
 
     def sample_idx(self, episodes_in_buffer, generator):
         idx = orig["sample_idx"](self, episodes_in_buffer, generator)
@@ -292,7 +364,7 @@ def instrument(ref_mod, sizes, seed: int, window: Window, holder: Dict[str, Any]
     def capture(self, ps, kind):
         out = orig["_capture"](self, ps, kind)
         if kind == "train" and window.start is None:
-            window.start = time.perf_counter()
+            window.start, window.start_ns = time.perf_counter(), time.time_ns()
         return out
 
     def run_blocks(self, ps, n_blocks, train=True):
@@ -301,18 +373,22 @@ def instrument(ref_mod, sizes, seed: int, window: Window, holder: Dict[str, Any]
             window.first_gens = {k: g.get_state() for k, g in ps.generators.items()}
             window.marks["train"] = time.perf_counter()
         stats = orig["run_blocks"](self, ps, n_blocks, train)
-        now = time.perf_counter()
+        now, now_ns = time.perf_counter(), time.time_ns()
         if window.closed or not train:
             return stats
-        if window.start is None:  # the CPU: no capture; the window starts here
-            window.start, window.first_dispatch = now, False
+        if window.start is None:
+            # on the card a dispatch of the eager first block alone, before
+            # the capture, is set-up's; on the CPU, with no capture, the
+            # window starts after the first train dispatch
+            if not self.use_graphs:
+                window.start, window.start_ns, window.first_dispatch = now, now_ns, False
             return stats
         in_window = self.replays() - replays if window.first_dispatch else n_blocks
         window.first_dispatch = False
         loss = np.asarray(stats["metrics"]["loss"])[n_blocks - in_window:]
         window.blocks += in_window
         window.failed += int((~np.isfinite(loss)).sum())
-        window.end = now
+        window.end, window.end_ns = now, now_ns
         if now - window.start >= window.seconds:
             window.stop = True
         return stats
@@ -323,6 +399,7 @@ def instrument(ref_mod, sizes, seed: int, window: Window, holder: Dict[str, Any]
     targets = [(prun, "build_training", build_training), (prun, "_preempt_due", preempt_due),
                (FusedPipeline, "block_device", block_device), (FusedPipeline, "_capture", capture),
                (FusedPipeline, "run_blocks", run_blocks), (VectorRunner, "rollout", rollout),
+               (VectorRunner, "run", run),
                (FusedPipeline, "sample_idx", sample_idx),
                (EntityMAC, "forward_step", recording_step(EntityMAC.forward_step)),
                (BasicMAC, "forward_step", recording_step(BasicMAC.forward_step)),
@@ -359,11 +436,15 @@ def forbidden_modules() -> List[str]:
 
 # ------------------------------------------------------------------ the replay
 def state_tensors(ps) -> Dict[str, torch.Tensor]:
-    """Every tensor a block changes: the ring, the counters, the parameters,
-    the targets and the optimiser state."""
-    out = {f"ring.{k}": v for k, v in ps.ring.items()}
-    for n in ("buffer_index", "episodes_in_buffer", "t_env", "episode", "last_target_episode"):
-        out[n] = getattr(ps, n)
+    """Every tensor a block changes: the ring and ``outside_ring``."""
+    return {**{f"ring.{k}": v for k, v in ps.ring.items()}, **outside_ring(ps)}
+
+
+def outside_ring(ps) -> Dict[str, torch.Tensor]:
+    """Every tensor a block changes but the ring: the counters, the
+    parameters, the targets and the optimiser state."""
+    out = {n: getattr(ps, n)
+           for n in ("buffer_index", "episodes_in_buffer", "t_env", "episode", "last_target_episode")}
     learner = ps.train
     for i, (p, t) in enumerate(zip(learner.params, learner.target_params)):
         out[f"param.{i}"], out[f"target.{i}"] = p.data, t.data
@@ -373,45 +454,151 @@ def state_tensors(ps) -> Dict[str, torch.Tensor]:
     return out
 
 
-def scaled_gap(a: torch.Tensor, b: torch.Tensor) -> float:
-    """max |a - b| / max(1, max |b|): 0 where the two are equal."""
-    if torch.equal(a, b):
+def _chunks(n: int, item_bytes: int):
+    """(start, length) steps over ``n`` items of ``item_bytes`` each, every
+    step at most CHUNK_BYTES (or one item)."""
+    step = max(1, CHUNK_BYTES // max(1, item_bytes))
+    return ((i, min(step, n - i)) for i in range(0, n, step))
+
+
+def scaled_gap(a: torch.Tensor, b: torch.Tensor, floor: float = 1.0) -> float:
+    """max |a - b| / max(floor, max |b|), ``floor`` at least 1: 0 where the
+    two are equal. Worked in float64 a chunk at a time."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    steps = list(_chunks(fa.numel(), 24))  # three float64 temporaries an element
+    unequal = [(i, n) for i, n in steps if not torch.equal(fa[i:i + n], fb[i:i + n])]
+    if not unequal:
         return 0.0
-    a, b = a.double(), b.double()
-    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+    diff = torch.stack([(fa[i:i + n].double() - fb[i:i + n].double()).abs().max()
+                        for i, n in unequal]).max()
+    top = max(float(fb[i:i + n].double().abs().max()) for i, n in steps)
+    return float(diff / max(1.0, floor, top))
+
+
+class RingDigest:
+    """An exact digest of each ring row, plane by plane: the row's bytes as
+    signed words (32-bit where the row's length allows, else 16- or 8-bit),
+    each times a fixed odd 64-bit weight, summed modulo 2**64. A change of
+    one word always changes it (an odd weight is a unit modulo 2**64); any
+    other change leaves it equal with odds of about 2**-64. Worked a chunk
+    of rows at a time, so its scratch is at most CHUNK_BYTES or one row."""
+
+    def __init__(self, ring: Dict[str, torch.Tensor]):
+        self.words, n = {}, 1
+        for k, plane in ring.items():
+            row_bytes = plane[0].numel() * plane.element_size()
+            dt, size = next((dt, size) for dt, size in
+                            ((torch.int32, 4), (torch.int16, 2), (torch.uint8, 1))
+                            if row_bytes % size == 0)
+            self.words[k], n = dt, max(n, row_bytes // size)
+        gen = torch.Generator().manual_seed(DIGEST_SEED)
+        weights = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=gen, dtype=torch.int64) | 1
+        self.weights = weights.to(next(iter(ring.values())).device)
+
+    def __call__(self, ring: Dict[str, torch.Tensor], row_max: bool = False):
+        """{plane: (rows,) int64 digests}, and with ``row_max`` {plane:
+        (rows,) float64 largest |value| of each row}."""
+        digests, maxima = {}, {}
+        for k, plane in ring.items():
+            rows = plane.shape[0]
+            flat = plane.reshape(rows, -1)
+            words = flat.view(torch.uint8).view(self.words[k])
+            w = self.weights[:words.shape[1]]
+            digests[k] = torch.empty(rows, dtype=torch.int64, device=plane.device)
+            if row_max:
+                maxima[k] = torch.empty(rows, dtype=torch.float64, device=plane.device)
+            for i, n in _chunks(rows, words.shape[1] * 8):
+                x = words[i:i + n].to(torch.int64)
+                digests[k][i:i + n] = x.mul_(w).sum(1)
+                del x  # one chunk's words alive at a time
+                if row_max:
+                    part = flat[i:i + n]
+                    if part.dtype == torch.bool:
+                        part = part.view(torch.uint8)
+                    maxima[k][i:i + n] = torch.maximum(part.amax(1).double().abs(),
+                                                       part.amin(1).double().abs())
+        return (digests, maxima) if row_max else digests
+
+
+def stray_write(ps) -> None:
+    """A fault: one bit of the largest ring plane flipped, at the row where
+    ``buffer_index`` points (after a block, the first row past its insert)."""
+    plane = max(ps.ring.values(), key=lambda v: v[0].numel() * v.element_size())
+    plane[int(ps.buffer_index)].reshape(-1).view(torch.uint8)[:1].bitwise_xor_(1)
 
 
 def replay_readings(pipe, ps, first_gens) -> Dict[str, float]:
     """The timed path against the eager one, once the window has closed.
-    From one snapshot of the training state and of its generators, one
-    train block runs eagerly (``block_device``, the code the graph
-    captured) and then as the window runs it (``_next_block``: on the card
-    a replay of the captured graph). ``program`` is the largest
-    ``scaled_gap`` between the two over the block's packed stats and every
-    tensor of the state. ``frozen_draw`` reads a fault the same way: the
-    replay made with the generators as the first train block found them,
-    so that it redraws that block's numbers, as a graph whose generators
-    were left unregistered would."""
-    live = state_tensors(ps)
-    snap = {k: v.clone() for k, v in live.items()}
+    From one snapshot of what a train block may change and of the
+    generators, one train block runs eagerly (``block_device``, the code the
+    graph captured) and then as the window runs it (``_next_block``: on the
+    card a replay of the captured graph). A block changes the state outside
+    the ring, which is snapshotted whole, and the ring's ``batch_size_run``
+    rows from ``buffer_index`` (contiguous: the ring is a multiple of
+    ``batch_size_run``), which are snapshotted; every other row is held by
+    its digest (``RingDigest``). ``program`` is the largest ``scaled_gap``
+    between the two runs over the block's packed stats, the state outside
+    the ring and the written rows (each ring plane scaled by its largest
+    |value| over the whole plane, as a comparison of whole planes would
+    be), and ``inf`` where a row outside the insert's slots changed in
+    either run. ``frozen_draw`` reads a fault the same way: the replay made
+    with the generators as the first train block found them, so that it
+    redraws that block's numbers, as a graph whose generators were left
+    unregistered would; ``stray_write`` a replay followed by one bit flipped
+    outside the insert's slots (``inf`` where the digests see it). Both
+    faults are read in every run, for ``calibrate.py``."""
+    B = pipe.batch_size_run
+    start, size = int(ps.buffer_index), next(iter(ps.ring.values())).shape[0]
+    if pipe.n_data != 1 or start % B or size % B or size < 2 * B:
+        raise RuntimeError(f"the replay check reads one process's ring of whole blocks: "
+                           f"n_data {pipe.n_data}, buffer_index {start}, B {B}, ring {size}")
+    small = outside_ring(ps)
+    written = {k: v.narrow(0, start, B) for k, v in ps.ring.items()}
+    digest = RingDigest(ps.ring)
+    snap = {k: v.clone() for k, v in small.items()}
+    snap_rows = {k: v.clone() for k, v in written.items()}
+    snap_digest, row_max = digest(ps.ring, row_max=True)
+    kept = torch.ones(size, dtype=torch.bool, device=snap_digest[next(iter(ps.ring))].device)
+    kept[start:start + B] = False
+    # the largest |value| of each plane's rows that a block leaves alone
+    floor = {k: float(m[kept].max()) for k, m in row_max.items()}
+    del row_max
     now = {k: g.get_state() for k, g in ps.generators.items()}
 
-    def block(run, gens) -> torch.Tensor:
-        for k, v in live.items():
+    def strayed() -> bool:
+        return any(not torch.equal(d[kept], snap_digest[k][kept])
+                   for k, d in digest(ps.ring).items())
+
+    def block(run, gens):
+        for k, v in small.items():
             v.copy_(snap[k])
+        for k, v in written.items():
+            v.copy_(snap_rows[k])
         for k, g in ps.generators.items():
             g.set_state(gens[k])
-        return run(ps, True).clone()
+        out = run(ps, True).clone()
+        return out, strayed()
 
-    eager_out = block(pipe.block_device, now)
-    eager = {k: v.clone() for k, v in live.items()}
+    eager_out, eager_strayed = block(pipe.block_device, now)
+    eager = {k: v.clone() for k, v in small.items()}
+    eager_rows = {k: v.clone() for k, v in written.items()}
 
-    def gap(out: torch.Tensor) -> float:
+    def gap(result) -> float:
+        out, moved = result
+        if moved or eager_strayed:
+            return math.inf
         return max([scaled_gap(out, eager_out)]
-                   + [scaled_gap(live[k], eager[k]) for k in live])
+                   + [scaled_gap(small[k], eager[k]) for k in small]
+                   + [scaled_gap(written[k], eager_rows[k], floor[k]) for k in written])
+
+    def replay_then_stray(ps_, train):
+        out = pipe._next_block(ps_, train)
+        stray_write(ps_)
+        return out
 
     return {"program": gap(block(pipe._next_block, now)),
-            "frozen_draw": gap(block(pipe._next_block, first_gens))}
+            "frozen_draw": gap(block(pipe._next_block, first_gens)),
+            "stray_write": gap(block(replay_then_stray, now))}
 
 
 # ------------------------------------------------------------------ a run
@@ -420,8 +607,10 @@ def drive(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     """One run of ``workload`` with its window timed, then traced (with
     ``trace``) and held to the eager path (``replay_readings``): (the
     Recorder of set-up's first train block, the context that the metric
-    readers and the result read). ``device`` "cpu" skips nothing but the
-    card: the tests run the cell there at a small size."""
+    readers and the result read, with the tests' ``test_faults`` and the
+    window's first test, ``test``).
+    ``device`` "cpu" skips nothing but the card: the tests run the cell
+    there at a small size."""
     spec = spec or load_cell(workload)
     config, traffic = spec["config"], spec["traffic"]
     sizes = cell_sizes(config, traffic)
@@ -446,14 +635,30 @@ def drive(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
            "setup_s": window.start - t_start,
            "setup": _setup_steps(window, summary, t_start),
            "window_seconds": window.end - window.start, "window_blocks": window.blocks,
-           "window_failed": window.failed, "window_env_steps": _window_env_steps(summary),
+           "window_ns": (window.start_ns, window.end_ns), "window_failed": window.failed,
+           "window_env_steps": _window_env_steps(summary, on_card),
+           "window_tests": sum(window.start_ns <= s["start_ns"] and s["end_ns"] <= window.end_ns
+                               for s in (summary.get("spans") or {}).get("spans", ())
+                               if s["name"] == "test"),
            "trace": None}
     if trace and on_card:
         ctx["trace"] = tracing.trace_blocks(window.pipeline, window.state, TRACE_BLOCKS)
+    if on_card:  # the check's device bytes above what the run holds (its blocks' in)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     t_check = time.perf_counter()
     ctx["replay"] = replay_readings(window.pipeline, window.state, window.first_gens)
     ctx["replay_seconds"] = time.perf_counter() - t_check
+    ctx["check_bytes"] = torch.cuda.max_memory_allocated() - held if on_card else None
+    tests = holder["tests"]
+    interval, width = holder["cadence"]
+    ctx["test_faults"] = check.test_faults(
+        tests.seen, check.expected_tests([d["env_steps"] for d in summary["dispatches"]],
+                                         interval), width, int(sizes["episode_limit"]))
+    ctx["test"] = tests.rollout()
     window.pipeline = window.state = None
+    tests.seen = tests.learner = None
     gc.collect()
     if on_card:
         torch.cuda.synchronize()
@@ -473,7 +678,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
     try:
         if not rec.complete():
             raise ValueError("the first train block was not recorded whole")
-        numbers = check.readings(ctx["ref_mod"], rec, ctx["sizes"], ctx["replay"]["program"])
+        numbers = check.readings(ctx["ref_mod"], rec, ctx["sizes"], ctx["replay"]["program"],
+                                 ctx["test_faults"], ctx["test"])
     except (ValueError, RuntimeError, IndexError, KeyError) as err:
         # what the program produced cannot be held to the reference at all
         print(f"check: {type(err).__name__}: {err}", file=sys.stderr)
@@ -496,8 +702,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
               else {"platform": "cpu"}}
     if ctx["trace"] is not None:
         result["breakdown"] = tracing.breakdown(ctx["trace"])
-    result["checks"] = {k: {"value": numbers[k] if math.isfinite(numbers[k]) else None,
-                            "limit": limits[k]} for k in limits}
+    result["checks"] = {k: {"value": numbers[k] if math.isfinite(numbers.get(k, math.nan))
+                            else None, "limit": limits[k]} for k in limits}
     return result, ctx
 
 
@@ -506,26 +712,30 @@ def _setup_steps(window: Window, summary, t_start: float) -> Dict[str, float]:
     the card, the configuration), the build (env, learner, kernel
     libraries), the warm-up dispatch with the loop's test rollout, and the
     first train dispatch up to the window (its eager block and the
-    capture); and, within those, the captures, the test rollout and the
-    eager first blocks."""
+    capture); and, within those, the captures, set-up's test rollouts and
+    the eager first blocks."""
     m, graphs = window.marks, summary.get("graphs", {})
+    tests = [s for s in (summary.get("spans") or {}).get("spans", ())
+             if s["name"] == "test" and s["end_ns"] <= window.start_ns]
     return {"to_build": m["build"] - t_start, "build": m["built"] - m["build"],
             "warm_and_test": m["train"] - m["built"], "first_train": window.start - m["train"],
             "captures": sum(g["capture_seconds"] + g["instantiate_seconds"]
                             for g in graphs.values()),
-            "test": sum(t["seconds"] for t in summary.get("tests", [])),
+            "test": sum(s["end_ns"] - s["start_ns"] for s in tests) / 1e9,
             "eager_blocks": window.pipeline.eager_seconds}
 
 
-def _window_env_steps(summary) -> int:
-    """Env steps of the window's blocks: the replayed part of the first train
-    dispatch, then every later dispatch (all train, all replayed)."""
+def _window_env_steps(summary, on_card: bool) -> int:
+    """Env steps of the window's train blocks (a test rollout advances no
+    env step): on the card every train dispatch's replayed blocks, from
+    the train graph's capture on; on the CPU, with no graphs, the train
+    dispatches after the first."""
     train = [d for d in summary["dispatches"] if d["train"]]
     if summary["loop"] != "fused" or not train:
         raise RuntimeError("the run made no train dispatch of the fused loop")
-    if not train[0]["replays"]:  # the CPU: no graphs, the window after the first
+    if not on_card:
         return sum(d["env_steps"] for d in train[1:])
-    return train[0]["replay_env_steps"] + sum(d["env_steps"] for d in train[1:])
+    return sum(d["replay_env_steps"] for d in train)
 
 
 def _device(peak: int, tr) -> Dict[str, Any]:

@@ -54,9 +54,9 @@ def main(argv=None) -> int:
     if found:
         print(f"benchmark: the process loaded {found}", file=sys.stderr)
         return 3
-    print(f"window {ctx['window_blocks']} blocks, {ctx['window_env_steps']} env steps in "
-          f"{ctx['window_seconds']!r} s; check took "
-          f"{ctx['check_seconds']!r} s", file=sys.stderr)
+    print(f"window {ctx['window_blocks']} blocks, {ctx['window_env_steps']} env steps, "
+          f"{ctx['window_tests']} tests in {ctx['window_seconds']!r} s; check took "
+          f"{ctx['check_seconds']!r} s and {ctx['check_bytes']} device bytes", file=sys.stderr)
     print("setup " + " ".join(f"{k} {v!r}" for k, v in ctx["setup"].items()), file=sys.stderr)
     for name, c in result["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)

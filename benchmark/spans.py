@@ -6,7 +6,7 @@ its launch, and, with the program's ``trace_blocks``, its start and end on
 the host clock and each stage's ns from the device stamps
 (``refil_torch/core/pipeline.py``). A program that records none gives
 None."""
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 
 def window_blocks(ctx) -> Optional[List[Dict[str, Any]]]:
@@ -42,3 +42,15 @@ def rollout_ns(block) -> int:
 def end_intervals_ns(blocks) -> List[int]:
     """The intervals between consecutive blocks' end stamps."""
     return [b["end_ns"] - a["end_ns"] for a, b in zip(blocks, blocks[1:])]
+
+
+def test_intervals_ns(ctx) -> List[Tuple[int, int]]:
+    """The (start, end) of the loop's ``test`` spans: a test runs on the
+    host between two dispatches, so the device interval that holds one is
+    the test's, not the blocks'."""
+    return [(s["start_ns"], s["end_ns"]) for s in ctx["summary"]["spans"]["spans"]
+            if s["name"] == "test"]
+
+
+def holds_test(start_ns: int, end_ns: int, tests) -> bool:
+    return any(s < end_ns and start_ns < e for s, e in tests)

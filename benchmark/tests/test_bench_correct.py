@@ -4,8 +4,10 @@ one precision below the configuration's) and runs with the timed path broken
 underneath fail them: a step that leaves the state unchanged, half of each
 batch left out, an answer altered where it is produced, blocks that redraw
 the first block's numbers (as unregistered graph generators would), a
-sample that repeats a slot, an insert that never reaches the ring, and
-bipartitions not drawn from their probabilities. The harness's look for a
+sample that repeats a slot, an insert that never reaches the ring,
+bipartitions not drawn from their probabilities; and, at the test cadence,
+a test over half the episodes, a test stopped before its episodes end and
+a test that acts off its greedy choice. The harness's look for a
 card is skipped (the CPU path of ``harness.run_cell``); the rest of a run
 is driven as on the card."""
 import time
@@ -16,7 +18,7 @@ import torch
 from benchmark import check, harness
 from benchmark.tests.tiny import tiny_spec
 
-WORKLOADS = ["refil_sz.b8", "refil_sz_bf16.b4096"]
+WORKLOADS = ["refil_sz.b8", "refil_sz_bf16.b4096", "refil_sz_bf16.b512_test"]
 
 
 def _run(workload, seed=11):
@@ -33,7 +35,7 @@ def test_the_port_passes_and_the_control_fails(workload):
     rec, ctx = harness.drive(workload, seed, 0.0, False, time.perf_counter(), device="cpu",
                              spec=spec)
     readings = check.calibration(ctx["ref_mod"], rec, ctx["sizes"], ctx["dtype"],
-                                 ctx["replay"], seed)
+                                 ctx["replay"], seed, ctx["test_faults"], ctx["test"])
     limits = spec["limits"]
     assert check.verdict(readings["program"], limits), readings["program"]
     for kind, numbers in readings.items():
@@ -46,7 +48,8 @@ def test_a_sound_run_is_correct(workload):
     result, _ = _run(workload)
     assert result["correct"], result["checks"]
     assert list(result)[-1] == "checks"
-    assert set(result["checks"]) == set(check.NUMBERS)
+    limits = harness.load_cell(workload)["limits"]
+    assert set(result["checks"]) == set(limits) <= set(check.NUMBERS)
 
 
 def _state_unchanged(monkeypatch):
@@ -148,3 +151,66 @@ def test_a_broken_timed_path_is_not_correct(monkeypatch, fault):
     fault(monkeypatch)
     result, _ = _run("refil_sz.b8")
     assert not result["correct"], result["checks"]
+
+
+def _test_half_episodes(monkeypatch):
+    """Each test rolls out half the episodes it should."""
+    from refil_torch.runners.vector_runner import VectorRunner
+
+    run = VectorRunner.run
+
+    def half(self, *args, **kwargs):
+        if kwargs.get("test_mode") and kwargs.get("batch_size"):
+            kwargs["batch_size"] //= 2
+        return run(self, *args, **kwargs)
+
+    monkeypatch.setattr(VectorRunner, "run", half)
+
+
+def _test_stopped_early(monkeypatch):
+    """Each test stops at half the episode limit."""
+    from refil_torch.runners.vector_runner import VectorRunner
+
+    run = VectorRunner.run
+
+    def early(self, *args, **kwargs):
+        if not kwargs.get("test_mode"):
+            return run(self, *args, **kwargs)
+        limit, self.episode_limit = self.episode_limit, self.episode_limit // 2
+        try:
+            return run(self, *args, **kwargs)
+        finally:
+            self.episode_limit = limit
+
+    monkeypatch.setattr(VectorRunner, "run", early)
+
+
+def _test_not_greedy(monkeypatch):
+    """The test picks the available action its Q puts last."""
+    from refil_torch.runners.vector_runner import VectorRunner
+
+    select = VectorRunner.select
+
+    def worst(self, q, avail, epsilon, test, generator, shard=None):
+        if not test:
+            return select(self, q, avail, epsilon, test, generator, shard)
+        return q.masked_fill(~avail, float("inf")).argmin(dim=-1)
+
+    monkeypatch.setattr(VectorRunner, "select", worst)
+
+
+@pytest.mark.parametrize("fault, fails", [(_test_half_episodes, {"test_faults"}),
+                                          (_test_stopped_early, {"test_faults"}),
+                                          (_test_not_greedy, {"test_action_gap"})],
+                         ids=["half_episodes", "stopped_early", "not_greedy"])
+def test_a_broken_test_rollout_is_not_correct(monkeypatch, fault, fails):
+    """At the test cadence, a fault in the tests alone fails the numbers
+    that hold the tests."""
+    fault(monkeypatch)
+    result, _ = _run("refil_sz_bf16.b512_test")
+    assert not result["correct"], result["checks"]
+    failing = {k for k, c in result["checks"].items()
+               if c["value"] is None or c["value"] > c["limit"]}
+    assert fails <= failing <= {"test_faults", "test_q_gap", "test_action_gap"}, \
+        result["checks"]
+

@@ -31,7 +31,8 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     assert costs.bound_ms(3.35e9, 989e9 * 2, "bfloat16") == pytest.approx(2.0)
 
 
-@pytest.mark.parametrize("workload", ["refil_sz.b8", "refil_sz_bf16.b4096"])
+@pytest.mark.parametrize("workload", ["refil_sz.b8", "refil_sz_bf16.b4096",
+                                      "refil_sz_bf16.b512_test"])
 def test_launches_per_block_match_the_graphs(workload):
     """A train block's launches as the port's captured train graph records
     them on the card (the run's `graphs` summary): 15 attention forwards and

@@ -12,7 +12,8 @@ from benchmark import costs, harness
 from benchmark.tests.tiny import tiny_spec
 
 
-@pytest.mark.parametrize("workload", ["refil_sz.b8", "refil_sz_bf16.b4096"])
+@pytest.mark.parametrize("workload", ["refil_sz.b8", "refil_sz_bf16.b4096",
+                                      "refil_sz_bf16.b512_test"])
 def test_block_calls_match_the_ops(monkeypatch, workload):
     from refil_torch.core.pipeline import FusedPipeline
     from refil_torch.modules import layers

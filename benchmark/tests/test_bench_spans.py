@@ -55,3 +55,28 @@ def test_stages_fit_in_the_block_interval(tiny_run):
     assert value["block_ms.train_p90"] >= statistics.median(intervals) / 1e6
     assert 0 <= value["idle_between_blocks"] < 100
     assert 0 < value["build_s"] < ctx["setup_s"]
+
+
+def _ctx(blocks, tests):
+    """A summary with ``blocks`` ((start, end) ns of train replays) and
+    ``tests`` ((start, end) ns of test spans)."""
+    return {"summary": {"spans": {
+        "blocks": [{"kind": "train", "replay": True, "dispatch": i, "start_ns": s, "end_ns": e}
+                   for i, (s, e) in enumerate(blocks)],
+        "spans": [{"name": "test", "start_ns": s, "end_ns": e} for s, e in tests]}}}
+
+
+def test_gaps_that_hold_a_test_are_the_tests():
+    """idle_between_blocks and block_ms.train_p90 leave out the gaps between
+    blocks in which a test rollout ran; with no test they read as before."""
+    ms = 1_000_000
+    blocks = [(0, 100 * ms), (101 * ms, 200 * ms), (700 * ms, 800 * ms), (802 * ms, 900 * ms)]
+    idle, p90 = (harness.load_reader(m) for m in ("idle_between_blocks", "block_ms.train_p90"))
+    plain = _ctx(blocks, [])
+    assert idle(plain) == pytest.approx(100.0 * (1 + 500 + 2) / 900)
+    assert p90(plain) == pytest.approx(
+        statistics.quantiles([100.0, 600.0, 100.0], n=10)[-1])
+    tested = _ctx(blocks, [(250 * ms, 650 * ms)])
+    assert idle(tested) == pytest.approx(100.0 * (1 + 2) / (900 - 500))
+    assert p90(tested) == pytest.approx(100.0)
+    assert idle(_ctx(blocks[1:3], [(250 * ms, 650 * ms)])) is None
