@@ -54,12 +54,13 @@ run's launches are the counts plus ``launches x (replays - 1)`` per graph.
 Each block leaves a record in the pipeline's ``timer`` (``utils/profiling.py``).
 With ``trace_blocks`` (the default) one-thread kernels (``ops/stamp.py``)
 write the device's clock at the block's stage boundaries (start, rollout,
-insert and counters, sample, each update, the gt diagnostics, the target
-sync, the stats packed) into an int64 buffer of their own, outside the
-stats and the state;
-a replay rewrites them, and ``run_blocks`` copies them out after each block
-as it does the stats. The host's side is spans: each replay's ``launch``,
-the closing ``sync``, the eager first blocks, each capture and instantiate.
+insert and counters, sample, each update's agents' forward, its mixers and
+loss, and its end after RMSprop, the gt diagnostics, the target sync, the
+stats packed) into an int64 buffer of their own, outside the stats and the
+state; a replay rewrites them, and ``run_blocks`` copies them out after each
+block as it does the stats. The host's side is spans: each replay's
+``launch``, the closing ``sync``, the eager first blocks, each capture and
+instantiate.
 """
 from __future__ import annotations
 
@@ -169,11 +170,11 @@ class FusedPipeline:
         self.gt_diag = bool(getattr(args, "test_gt_factors", False)) and learner.has_gt_diagnostics
         self.use_graphs = self.device.type == "cuda"
         # device stamps at the block's stage boundaries (ops/stamp.py), one
-        # slot each: start, rollout, insert, sample, each update, the gt
-        # diagnostics, the target sync, the stats packed; outside the stats
-        # and the state
+        # slot each: start, rollout, insert, sample, each update's three
+        # (agents, mix, update), the gt diagnostics, the target sync, the
+        # stats packed; outside the stats and the state
         self.trace_blocks = bool(getattr(args, "trace_blocks", True))
-        self._stamps = (torch.zeros(6 + self.training_iters + int(self.gt_diag),
+        self._stamps = (torch.zeros(6 + 3 * self.training_iters + int(self.gt_diag),
                                     dtype=torch.int64, device=self.device)
                         if self.trace_blocks else None)
         self._stamp_names: Dict[str, Tuple[str, ...]] = {}  # by kind of block
@@ -295,7 +296,7 @@ class FusedPipeline:
         samples = {k: v.to(self._dtypes[k]) for k, v in samples.items()}
         self._stamp("sample")
         metrics = self.learner.updates(samples, draws.get("imagine"), mesh=self.mesh,
-                                       after_update=lambda i: self._stamp(f"update.{i}"))
+                                       stamp=self._stamp)
         if self.gt_diag:
             last = {k: v[-1] for k, v in samples.items()}
             metrics.update(self.learner.gt_diagnostics(last, draws.get("diag"), mesh=self.mesh))

@@ -122,11 +122,14 @@ class QLearner:
         return mask
 
     def _loss(self, batch: Dict[str, torch.Tensor], imagine_draws=None,
-              mask_elems: Optional[torch.Tensor] = None):
+              mask_elems: Optional[torch.Tensor] = None,
+              stamp: Optional[Callable[[str], None]] = None):
         """The loss and metrics of one update. ``mask_elems`` (a 0-d tensor)
         is the global batch's mask count where ``batch`` is one rank's slice
         of it: the loss and every metric are then this slice's sums over the
-        global denominators, which the ranks' all_reduce adds up."""
+        global denominators, which the ranks' all_reduce adds up.
+        ``stamp("agents")`` runs once the live and target agents' forwards
+        and the double-Q argmax are done, before the mixers."""
         args, mac = self.args, self.mac
         rewards = batch["reward"][:, :-1]
         actions = batch["actions"][:, :-1]
@@ -156,6 +159,8 @@ class QLearner:
                 target_max_qvals = _gather(target_q, live.argmax(dim=3))
             else:
                 target_max_qvals = target_q.max(dim=3).values
+        if stamp is not None:
+            stamp("agents")
 
         if self.mixer is not None:
             if isinstance(self.mixer, QMixer):
@@ -200,14 +205,18 @@ class QLearner:
         metrics["target_mean"] = (targets * mask).sum() / (mask_elems * self.n_agents)
         return loss, metrics
 
-    def train_step(self, batch, imagine_draws=None, mask_elems=None,
-                   reduce=None) -> Dict[str, torch.Tensor]:
+    def train_step(self, batch, imagine_draws=None, mask_elems=None, reduce=None,
+                   stamp: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One update; returns its metrics as 0-d tensors (no host sync).
         ``reduce`` (``MeshContext.all_reduce_``) sums, in place over the
         ranks, one flat float32 bucket of every gradient and the metrics,
         after the backward and before the clip, so ``grad_norm``, the clip
-        and RMSprop see the global gradient."""
-        loss, metrics = self._loss(batch, imagine_draws, mask_elems)
+        and RMSprop see the global gradient. ``stamp`` marks the update's
+        stage boundaries: ``agents`` (in ``_loss``), then ``mix`` once the
+        mixers, the targets and the loss are done, before the backward."""
+        loss, metrics = self._loss(batch, imagine_draws, mask_elems, stamp)
+        if stamp is not None:
+            stamp("mix")
         self.optimiser.zero_grad(set_to_none=False)
         loss.backward()
         grads = [p.grad for p in self.params]
@@ -232,13 +241,14 @@ class QLearner:
         return {k: v.detach() for k, v in metrics.items()}
 
     def updates(self, batches, imagine_draws: Optional[Sequence] = None, mesh=None,
-                after_update: Optional[Callable[[int], None]] = None
-                ) -> Dict[str, torch.Tensor]:
+                stamp: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """The ``training_iters`` updates in sequence on ``batches`` stacked on
         a leading iteration axis, with no host sync (``_train_iters_impl`` of
         the JAX learner). Returns the last update's metrics.
         ``imagine_draws[i]`` = (group_probs, groupA) for update i (tests).
-        ``after_update(i)`` runs after update i (the fused pipeline's stamps).
+        ``stamp`` (the fused pipeline's) marks three boundaries of update i:
+        ``agents.<i>``, ``mix.<i>`` (``train_step``) and ``update.<i>``, after
+        RMSprop.
 
         With ``mesh`` (a ``parallel.mesh.MeshContext``), ``batches`` is this
         rank's shard of the global sample (``MeshContext.gather_sample``):
@@ -257,8 +267,9 @@ class QLearner:
         for i in range(n_iters):
             batch = {k: v[i] for k, v in batches.items()}
             draws = None if imagine_draws is None else imagine_draws[i]
+            mark = None if stamp is None else (lambda name, i=i: stamp(f"{name}.{i}"))
             if mesh is None:
-                metrics = self.train_step(batch, draws)
+                metrics = self.train_step(batch, draws, stamp=mark)
             else:
                 if draws is None and self.is_imagine and not getattr(
                         self.args, "train_gt_factors", False):
@@ -267,9 +278,10 @@ class QLearner:
                                                 entity_mask.shape[-1], self.generator,
                                                 entity_mask.device)
                 metrics = self.train_step(batch, None if draws is None else mesh.shard(draws),
-                                          mask_elems=mask_elems[i], reduce=mesh.all_reduce_)
-            if after_update is not None:
-                after_update(i)
+                                          mask_elems=mask_elems[i], reduce=mesh.all_reduce_,
+                                          stamp=mark)
+            if mark is not None:
+                mark("update")
         return metrics
 
     def train_iters(self, batches, t_env: int, episode_num: int,

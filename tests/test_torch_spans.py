@@ -9,6 +9,8 @@ eagerly and each stamp is the host clock:
 * the stamps change no number: with ``trace_blocks`` on and off a seeded
   run's packed stats and every state tensor are bit-equal, a fused
   checkpoint holds the same keys, and off calls the stamp op nowhere;
+* each learner update stamps its agents' forward, its mixers and loss, and
+  its end, in that order, on the entity and the flat paths;
 * the per-block store stays at its cap; the idle between blocks goes to the
   innermost span open at its midpoint; the clock offset's bounds.
 """
@@ -29,8 +31,8 @@ GM = ["--config=refil_group_matching", "--env-config=group_matching", "with", "t
       "batch_size=8", "buffer_size=16", "test_nepisode=8", "test_interval=400",
       "attn_embed_dim=16", "hypernet_embed=16", "mixing_embed_dim=8", "training_iters=2",
       "max_blocks_per_dispatch=4", "use_cuda=False"]
-TRAIN_STAMPS = ("start", "rollout", "insert", "sample", "update.0", "update.1", "diag", "sync",
-                "pack")
+TRAIN_STAMPS = ("start", "rollout", "insert", "sample", "agents.0", "mix.0", "update.0",
+                "agents.1", "mix.1", "update.1", "diag", "sync", "pack")
 # the benchmark's combat model, cut to the CPU: the block without gt diagnostics
 COMBAT = dict(alg="refil", env="sc2custom", overrides=[
     "scenario=3-8sz_symmetric", "env_args.episode_limit=12", "attn_embed_dim=16",
@@ -40,6 +42,11 @@ GROUP_MATCHING = dict(alg="refil_group_matching", env="group_matching", override
     "env_args.n_agents=3", "env_args.n_states=4", "env_args.episode_limit=5",
     "attn_embed_dim=8", "attn_n_heads=2", "hypernet_embed=8", "mixing_embed_dim=8",
     "batch_size_run=4", "batch_size=4", "buffer_size=16", "training_iters=2"])
+# the flat path (qmix on sc2: BasicMAC, RNNAgent, QMixer), cut to the CPU
+FLAT = dict(alg="qmix", env="sc2", overrides=[
+    "env_args.map_name=3m", "env_args.episode_limit=12", "rnn_hidden_dim=16",
+    "hypernet_embed=16", "mixing_embed_dim=8", "batch_size_run=4", "batch_size=4",
+    "buffer_size=8", "training_iters=3"])
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +145,8 @@ def test_snapshot_leaves_out_blocks_run_after_the_loop(fused_run):
     assert pipe.timer.snapshot()["blocks"][-1]["dispatch"] == len(summary["dispatches"])
 
 
-@pytest.mark.parametrize("spec", [GROUP_MATCHING, COMBAT], ids=["group_matching", "combat"])
+@pytest.mark.parametrize("spec", [GROUP_MATCHING, COMBAT, FLAT],
+                         ids=["group_matching", "combat", "flat"])
 def test_stamps_change_no_number(spec):
     on, ps_on = _pipeline(spec, trace_blocks=True)
     off, ps_off = _pipeline(spec, trace_blocks=False)
@@ -153,6 +161,25 @@ def test_stamps_change_no_number(spec):
         assert torch.equal(state_on[k], state_off[k]), k
     assert all(b.stamps is not None for b in on.timer.blocks)
     assert all(b.stamps is None for b in off.timer.blocks)
+
+
+@pytest.mark.parametrize("spec", [GROUP_MATCHING, COMBAT, FLAT],
+                         ids=["group_matching", "combat", "flat"])
+def test_each_update_stamps_its_agents_then_its_mixers(spec):
+    """A train block's updates each stamp ``agents.<i>``, ``mix.<i>`` and
+    ``update.<i>`` in that order, one update after the other, between the
+    sample and the target sync; each of those stages takes time."""
+    pipe, ps = _pipeline(spec)
+    _run(pipe, ps)
+    iters = pipe.training_iters
+    updates = tuple(f"{stage}.{i}" for i in range(iters) for stage in ("agents", "mix", "update"))
+    train = [b for b in pipe.timer.snapshot()["blocks"] if b["kind"] == "train"]
+    assert len(train) == 3
+    for b in train:
+        names = tuple(b["stages"])
+        at = names.index("sample") + 1
+        assert names[at:at + 3 * iters] == updates, names
+        assert all(b["stages"][k] > 0 for k in updates), b["stages"]
 
 
 @pytest.mark.parametrize("include_buffer", [False, True])
